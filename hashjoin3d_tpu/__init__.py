@@ -1,6 +1,6 @@
-"""hashjoin3d_tpu: a TPU-native vectorized query-execution engine.
+"""hashjoin3d_tpu: a vectorized query-execution engine in JAX.
 
-Brand-new JAX/XLA/Pallas implementation of the capabilities of the CIDR 2022
+Brand-new JAX/XLA implementation of the capabilities of the CIDR 2022
 "3D Hash Join" artifact (dflaxx/3d-hashjoin, mounted read-only at
 ``/root/reference``): hash joins over a chaining and a nested/"3D" hash table,
 deferred unnesting of nested match groups, filter, hash aggregate and radix

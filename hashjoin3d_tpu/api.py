@@ -33,11 +33,8 @@ def _kd_expand_total(table, pk):
         import jax.numpy as jnp
 
         def f(table, pk):
-            from .ops.layout import I32, U32
-            from .ops.strands_windowed import safe_lookup
-            sk = jnp.sort(pk.astype(jnp.uint32)).astype(I32)
-            g = safe_lookup((table.key_direct + 1).view(U32),
-                            sk).astype(I32) - 1
+            from .ops.layout import safe_lookup
+            g = safe_lookup(table.key_direct + 1, pk.astype(jnp.uint32)) - 1
             glen = safe_lookup(table.groups.group_len, g)
             return jnp.sum(glen.astype(jnp.int64))
 
@@ -83,9 +80,9 @@ class JoinResult:
 
 
 #: Auto-backend crossover: below this total row volume (build + probe) the
-#: native host engine finishes before the device path's dispatch latency
-#: (two device round trips + per-op launch overhead; PERF.md "Small-query
-#: crossover", calibrated with tools/crossover.py on v5e).
+#: native host engine is expected to finish before the device path's
+#: dispatch latency (two device round trips + per-op launch overhead).  The
+#: value is not yet calibrated on the GPU.
 HOST_CROSSOVER_ROWS = 2_000_000
 
 
@@ -103,7 +100,7 @@ def join(build_keys, probe_keys, how: str = "nested",
     early exit.  ``num_buckets`` defaults to the distinct-key count (the
     experiments' ``#dv / b`` policy with b=1).  ``n_keys`` / ``key_domain``
     are the optional build hints (see ``build_*_host``).  ``backend``:
-    "device" (TPU ops), "host" (the native C++ engine -- exact same
+    "device" (the accelerator), "host" (the native C++ engine -- exact same
     counters, right choice for tiny ad-hoc queries where device dispatch
     latency dominates; u32 and u64 keys both dispatch to the engine's
     width-matched instantiation), or "auto" (default: route small queries
@@ -220,15 +217,15 @@ def join(build_keys, probe_keys, how: str = "nested",
     from .ops.chaining import build_chaining_host, can_use_dense_direct
     from .ops.nested import build_nested_host
 
-    # Physical-plan choices (the windowed fast paths, PERF.md):
+    # Physical-plan choices (the sorted probe strands, PERF.md):
     # - permutation build keys -> dense-direct layout, single-pass sorted
     #   probe strand;
-    # - densely bounded 32-bit key domains -> key_direct index + windowed
+    # - densely bounded 32-bit key domains -> key_direct index + sorted
     #   keydirect strand.  The domain is inferred from max(build_keys) when
     #   the caller gave no hint and the domain is not too sparse (<= 4x the
     #   build rows: a sparser key_direct wastes HBM for few hits);
     # - everything else (u64 / composite / sparse domains) -> the merged
-    #   windowed strands (sort-merge group resolution in sorted order; u64
+    #   sorted strands (sort-merge group resolution in sorted order; u64
     #   sorts as (hi, lo) u32 planes).
     # key_direct inference wants 32-bit UNSIGNED keys only: signed columns
     # canonicalize negatives to huge u32 values (beyond any inferred
@@ -242,7 +239,7 @@ def join(build_keys, probe_keys, how: str = "nested",
     dense = narrow and can_use_dense_direct(bk, num_buckets, hashfun)
 
     if how == "chaining" and dense:
-        # single-pass windowed strand: positional pairs + exact counters
+        # single-pass sorted strand: positional pairs + exact counters
         from .ops.strands_windowed import direct_probe_strand_sorted
         table = build_chaining_host(bk, num_buckets, dense_direct=True,
                                     n_keys=bk.size,
@@ -259,7 +256,7 @@ def join(build_keys, probe_keys, how: str = "nested",
         table = build_chaining_host(bk, num_buckets, n_keys=n_keys,
                                     key_domain=key_domain, hashfun=hashfun)
         if table.key_direct is not None and narrow:
-            # windowed keydirect strand (mirrors the nested branch below):
+            # sorted keydirect strand (mirrors the nested branch below):
             # one domain-sized lookup resolves each probe's group -- no
             # merged (n_keys+P)-element sort.  total == matches for
             # chaining probes, so the sizing sync reads the pre-pass.
@@ -273,10 +270,9 @@ def join(build_keys, probe_keys, how: str = "nested",
             v = out["probe_row"] >= 0
             return JoinResult(out["probe_row"][v], out["build_row"][v],
                               m, c, m)
-        # merged windowed strand: ANY key width (u64 / composite / sparse
-        # u32 domains ride the same fast path as dense ones -- the sort-
-        # merge group resolution stays in sorted order and every downstream
-        # access is a windowed lookup).  One sizing sync; num_matches IS
+        # merged sorted strand: ANY key width (u64 / composite / sparse
+        # u32 domains ride the same path as dense ones -- the sort-merge
+        # group resolution stays in sorted order).  One sizing sync; num_matches IS
         # the emitted-pair total for chaining probes.
         from .ops.strands_windowed import merged_chaining_strand_sorted
         pre = merged_chaining_strand_sorted(table, pk, 1, unique=unique,
@@ -293,8 +289,8 @@ def join(build_keys, probe_keys, how: str = "nested",
         table = build_nested_host(bk, num_buckets, n_keys=n_keys,
                                   key_domain=key_domain, hashfun=hashfun)
         if table.key_direct is not None and narrow:
-            # windowed keydirect strand: one sizing sync, then the fused
-            # probe+unnest pipeline (PERF.md: 25-47x the reference at 16.8M)
+            # sorted keydirect strand: one sizing sync, then the fused
+            # probe+unnest pipeline
             from .ops.strands_windowed import keydirect_nested_strand_sorted
             pre = keydirect_nested_strand_sorted(table, pk, 1,
                                                  do_unnest=False)
@@ -306,8 +302,8 @@ def join(build_keys, probe_keys, how: str = "nested",
             v = out["probe_row"] >= 0
             return JoinResult(out["probe_row"][v], out["build_row"][v],
                               m, c, total)
-        # merged windowed strand (see the chaining branch): the generic-key
-        # path -- u64 probes no longer fall back to serialized gathers
+        # merged sorted strand (see the chaining branch): the generic-key
+        # path
         from .ops.strands_windowed import merged_nested_strand_sorted
         pre = merged_nested_strand_sorted(table, pk, 1, do_unnest=False)
         m, c, total = (int(x) for x in jax.device_get(

@@ -1,6 +1,6 @@
 """Chaining hash-table equivalent: build + vectorized probe with exact counters.
 
-TPU-native re-design of ``HtChaining1`` (``ht_chaining.hh:38-158``) and of the
+Vectorized re-design of ``HtChaining1`` (``ht_chaining.hh:38-158``) and of the
 ``AlgHashJoinBuild`` / ``AlgHashJoinProbe`` operators (``algebra.hh:556-672``).
 
 The reference stores one 24-byte Node per build row in bucket chains and probes
@@ -80,7 +80,7 @@ class ChainingTable:
     key_direct: jax.Array | None = None  # i32[domain]
     # Per-key full-chain length (``bucket_len[bucket_of(key)]``), built on
     # demand for plans that count full chain walks on every probe (CsrUU):
-    # turns the probe's comparison counting into a windowed lookup.
+    # turns the probe's comparison counting into one gather per probe.
     chain_by_key: jax.Array | None = None  # i32[n] (dense-direct tables)
     # Bucket-assignment functor (the reference's pluggable ``Thashfun``,
     # ``ht_chaining.hh:236-248``): a HASH_FUNCTORS name or traceable
@@ -160,7 +160,7 @@ def build_chaining(keys: jax.Array, num_buckets: int,
     pointer insertions into a ``Reservoir`` arena.  ``valid`` marks live rows
     (padded shuffle outputs / filtered batches).  ``key_domain`` adds the
     dense key->group index (usable inside shard_map, unlike the host
-    builds), enabling the windowed probe strands on distributed shards.
+    builds), enabling the sorted probe strands on distributed shards.
     """
     keys = keys.astype(canon_key_dtype(keys))
     n = keys.shape[0]
@@ -436,8 +436,7 @@ def _build_chaining_phase2(keys, skey, srow, cap, num_buckets, dense_direct,
         b = jnp.where(keys == ukey_pad(keys.dtype), num_buckets, b)
 
     # chain positions via bucket-run scans (gather-free); the bucket histogram
-    # rides the same sort (sorted_histogram: bincount's scatter-add is ~35x
-    # slower than this on v5e)
+    # rides the same sort (sorted_histogram, no scatter-add)
     b_sorted, srow_b = lax.sort((b, row), num_keys=1, is_stable=True)
     is_first_b, _, run_start_b, run_len_b = run_boundaries(
         b_sorted.astype(U32), jnp.int32(n))

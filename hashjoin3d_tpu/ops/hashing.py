@@ -1,6 +1,6 @@
-"""Scalar integer hash functions, vectorized for TPU (jax.numpy) with numpy mirrors.
+"""Scalar integer hash functions, vectorized (jax.numpy) with numpy mirrors.
 
-TPU-native re-implementation of the reference hash library (see
+Vectorized re-implementation of the reference hash library (see
 ``/root/reference/util/hasht.hh:17-264``).  The reference evaluates these hashes
 one tuple at a time inside the probe/build loops; here every function maps a whole
 *column* (a ``uint32``/``uint64`` array) to a hash column in one vector op so XLA
@@ -14,7 +14,7 @@ routing both derive from it.  All arithmetic is explicit uint32/uint64 with
 wraparound multiplication, mirroring C semantics.
 
 Each function comes in two flavors:
-  * ``murmur32(x)``      - jax.numpy, traced/jitted, runs on TPU
+  * ``murmur32(x)``      - jax.numpy, traced/jitted, runs on the device
   * ``murmur32_np(x)``   - numpy, host-side mirror for data generation and oracles
 
 Both flavors are tested to agree with each other and with the reference
@@ -54,7 +54,7 @@ _M64_C2 = 0xC4CEB9FE1A95EC63
 
 
 def murmur32(x):
-    """Murmur3 32-bit finalizer, elementwise over a uint32 array (TPU path)."""
+    """Murmur3 32-bit finalizer, elementwise over a uint32 array (device path)."""
     x = jnp.asarray(x, jnp.uint32)
     x = x ^ (x >> 16)
     x = x * jnp.uint32(_M32_C1)
@@ -77,7 +77,7 @@ def murmur32_np(x):
 
 
 def murmur64(x):
-    """Murmur3 64-bit finalizer (needs jax x64 enabled; TPU emulates u64)."""
+    """Murmur3 64-bit finalizer (needs jax x64 enabled)."""
     x = jnp.asarray(x, jnp.uint64)
     x = x ^ (x >> 33)
     x = x * jnp.uint64(_M64_C1)
@@ -199,7 +199,7 @@ def multiplicative64_np(x, a: int, b: int):
         return np.uint64(a) * x + np.uint64(b)
 
 
-# -- fibonacci hash, TPU (jnp) flavors (reference: util/hasht.hh:31-39) -------
+# -- fibonacci hash, device (jnp) flavors (reference: util/hasht.hh:31-39) -------
 
 def fibhash32(x, n):
     """32-bit Fibonacci hash into [0, n), double-precision like the
@@ -240,7 +240,7 @@ def fibhash64_np(x, n):
 
 # -- CRC32-C (Castagnoli), software table implementation -----------------------
 # The reference's HashCrc32 family uses SSE4.2 _mm_crc32_u32
-# (util/hasht.hh:115-262); TPUs have no CRC unit, so provide the standard
+# (util/hasht.hh:115-262); the device has no CRC instruction here, so provide the standard
 # table-driven software CRC32-C for host-side parity and as a secondary
 # engine hash.
 

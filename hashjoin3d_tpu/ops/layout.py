@@ -1,11 +1,11 @@
-"""Shared CSR layout builders: the TPU-native replacement for linked-list hash tables.
+"""Shared CSR layout builders: the vectorized replacement for linked-list hash tables.
 
 The reference implements two pointer-chasing hash tables (``ht_chaining.hh:38-158``,
 ``ht_nested.hh:71-251``) built one tuple at a time from a ``Reservoir`` arena.
-On TPU, random scatter and pointer chasing are the enemy; instead we express both
-tables as *dense index arrays* (CSR) constructed with sorts, segment boundaries
-and prefix sums -- all ops XLA tiles well.  Stable addresses come for free because
-everything is an index into a dense array (replacing ``util/reservoir.hh:11-233``).
+Here both tables are *dense index arrays* (CSR) constructed with sorts, segment
+boundaries and prefix sums -- whole-column ops with no pointer chasing.  Stable
+addresses come for free because everything is an index into a dense array
+(replacing ``util/reservoir.hh:11-233``).
 
 Semantics preserved exactly (so the reference's measurement counters can be
 reproduced bit-for-bit):
@@ -82,8 +82,8 @@ class GroupIndex:
     group_len: jax.Array    # i32[n]  number of rows per key (0 for padding)
     group_rows: jax.Array   # i32[n]  build row ids per key, ASCENDING (the
     #   stable key sort's row payload verbatim -- storing emission order
-    #   would cost an n-sized permutation scatter per build, ~80 ms at
-    #   16.8M; consumers recover the [first, rest LIFO] chain order with
+    #   would cost an n-sized permutation scatter per build; consumers
+    #   recover the [first, rest LIFO] chain order with
     #   :func:`emit_pos` instead)
     first_row: jax.Array    # i32[n]  first-inserted row id per key (MainNode._data)
     gid_by_row: jax.Array   # i32[n]  group id of each build row
@@ -123,8 +123,7 @@ def key_group_index(keys: jax.Array, valid: jax.Array | None = None) -> GroupInd
         vs = jnp.arange(n, dtype=I32) < n_valid  # valid in sorted order
 
     # Scan-based run structure: per-sorted-row run_start/run_len come from
-    # cummax/cummin (no [gid] gathers -- a 16.8M gather costs ~168 ms on
-    # v5e; jnp.nonzero(size=) would cost ~100 ms per 1M).
+    # cummax/cummin (no [gid] gathers, no jnp.nonzero(size=)).
     is_first, gid, run_start, run_len = run_boundaries(skey, n_valid)
     n_keys = jnp.maximum(gid[-1] + 1, 0)
 
@@ -132,9 +131,8 @@ def key_group_index(keys: jax.Array, valid: jax.Array | None = None) -> GroupInd
     if _headcompact_use_sort():
         # Stable partition by ~is_first: the heads land first, in ascending
         # group-id order, and the payload slots deliver every directory
-        # column in one sort -- no scatters, and no n-sized serialized
-        # gathers for ukey/first_row (XLA gathers cost ~8.6 ns/elem on v5e
-        # even at sorted indices).
+        # column in one sort -- no scatters and no n-sized gathers for
+        # ukey/first_row.
         _, start_c, len_c, ukey_c, first_c = lax.sort(
             ((~is_first).astype(I32), i_sorted, run_len.astype(I32),
              skey, srow), num_keys=1, is_stable=True)
@@ -181,9 +179,7 @@ def run_boundaries(skey: jax.Array, n_valid):
     """Run-length structure of a sorted key column, gather-free.
 
     Returns ``(is_first, gid, run_start, run_len)`` per sorted element, all
-    computed with scans (cumsum / cummax / reverse-cummin) -- on TPU a scan
-    streams at memory bandwidth while an n-element random gather costs ~10ns
-    per element.
+    computed with scans (cumsum / cummax / reverse-cummin).
     """
     from .scan import engine_multi_scan
 
@@ -193,8 +189,7 @@ def run_boundaries(skey: jax.Array, n_valid):
     vs = i < n_valid
     is_first = jnp.concatenate([jnp.ones((1,), bool), skey[1:] != skey[:-1]])
     is_first = is_first & vs
-    # one fused forward pass (cumsum + cummax) and one reverse pass; with
-    # the default "lax" impl these are the plain XLA scans
+    # one forward scan bundle (cumsum + cummax) and one reverse scan
     gid1, run_start = engine_multi_scan(
         (is_first.astype(I32), jnp.where(is_first, i, -1)), ("sum", "max"))
     gid = gid1 - 1
@@ -207,14 +202,13 @@ def run_boundaries(skey: jax.Array, n_valid):
 
 
 #: Directory head-compaction formulation: "auto" (device -> sort, cpu ->
-#: scatter), "scatter" (n-update narrow scatter at the run heads, ~4.8
-#: ns/update serialized on v5e -- ~81 ms per build at 2^24), or "sort"
+#: scatter), "scatter" (n-update narrow scatter at the run heads), or "sort"
 #: (stable 1-bit partition: run heads already appear in ascending group-id
 #: order, so a stable ``lax.sort`` keyed on ``~is_first`` compacts their
 #: positions -- and, on the padded path, carries run_len/srow/skey as
-#: payload slots, replacing two scatters AND two n-sized serialized
-#: directory gathers with one multi-operand sort).  Binds at trace time;
-#: tools/buildprof.py A/Bs the formulations on the real TPU.
+#: payload slots, replacing two scatters AND two n-sized directory gathers
+#: with one multi-operand sort).  Which one wins on the GPU is not yet
+#: measured.  Binds at trace time; tools/buildprof.py A/Bs the formulations.
 _HEADCOMPACT_IMPL = "auto"
 
 
@@ -234,10 +228,9 @@ def _headcompact_use_sort() -> bool:
 
 
 #: Inverse-permutation formulation: "auto" (device -> sort, cpu -> scatter),
-#: "scatter" (XLA scatter, ~4.8 ns/elem serialized on v5e), or "sort"
-#: (one 2-op ``lax.sort``, ~3.0 ns/elem at 2^24 -- the measured winner on
-#: device, see tools/roofline.py's inv-perm rows).  Flip for benchmarking
-#: with :func:`set_invperm_impl`; binds at trace time.
+#: "scatter" (XLA scatter) or "sort" (one 2-op ``lax.sort``).  Which one
+#: wins on the GPU is not yet measured.  Flip for benchmarking with
+#: :func:`set_invperm_impl`; binds at trace time.
 _INVPERM_IMPL = "auto"
 
 
@@ -255,13 +248,9 @@ def inverse_permute(perm: jax.Array, vals: jax.Array) -> jax.Array:
     computed in sort order: ``pos_by_row``, ``gid_by_row``, dense-direct
     images).  Two formulations, selected by :func:`set_invperm_impl`:
 
-    * scatter: ``zeros(n).at[perm].set(vals)``.  XLA lowers the 1D scatter
-      to a serialized ~4.8 ns/elem loop on v5e (81 ms at 2^24).
+    * scatter: ``zeros(n).at[perm].set(vals)``.
     * sort: ``lax.sort((perm, vals))`` -- a permutation sorted ascending IS
-      iota, so the co-sorted payload lands in ``out[perm[i]]`` order.  The
-      2-op sort costs ~3.0 ns/elem at 2^24 (49.8 ms), ~1.6x the scatter's
-      throughput, and keeps winning down to small n (bitonic depth shrinks
-      with n while the scatter stays serialized).
+      iota, so the co-sorted payload lands in ``out[perm[i]]`` order.
 
     The contract is strict: every output position written exactly once (no
     sentinels, no drops).  All call sites pass a sort's row payload or a
@@ -291,7 +280,7 @@ def compact_group_index(keys: jax.Array, skey: jax.Array, srow: jax.Array,
     (already key-sorted, i.e. rode the phase-1 sort as a payload).
     Distributed builds pass the GLOBAL row ids here so probe strands emit
     global coordinates directly -- without this, every shard-local result
-    row pays a serialized ~8.6 ns/elem id-mapping gather after the probe.
+    row pays an id-mapping gather after the probe.
     """
     n = keys.shape[0]
     kd = skey.dtype
@@ -301,24 +290,17 @@ def compact_group_index(keys: jax.Array, skey: jax.Array, srow: jax.Array,
     # group_rows in sorted order (see GroupIndex docstring / emit_pos)
     group_rows = srow if row_values is None else row_values.astype(I32)
 
-    # Directory via ONE narrow head-position scatter + cap-sized lookups.
-    # (A single (n,4) stacked scatter looks tidy but XLA's multi-column
-    # scatter is ~14x slower than a narrow scatter on v5e.)  Group ids are
-    # assigned in sorted-key order, so the head positions hp ascend -- the
-    # three directory gathers ride the windowed lookup (~2.5 ms each at
-    # 8.4M entries instead of ~72 ms of serialized gather; 64-bit keys
-    # fetch their halves separately, windowed lookups are u32).
+    # Directory via ONE narrow head-position compaction + cap-sized
+    # gathers at the (ascending) head positions hp.
     if n == 0:
         ukey = jnp.full(cap, ukey_pad(kd), kd)
         group_start = jnp.zeros(cap, I32)
         group_len = jnp.zeros(cap, I32)
         first_row = jnp.zeros(cap, I32)
     else:
-        from .strands_windowed import safe_lookup, stride_params
         pad = jnp.arange(cap, dtype=I32) >= jnp.minimum(gid[-1] + 1, cap)
         if _headcompact_use_sort():
             # stable 1-bit partition: head positions compact in gid order
-            # (~3.0 ns/elem vs the scatter's serialized ~4.8 ns/update)
             _, s_i = lax.sort(((~is_first).astype(I32), i), num_keys=1,
                               is_stable=True)
             head_c = (s_i[:cap] if cap <= n else
@@ -329,32 +311,10 @@ def compact_group_index(keys: jax.Array, skey: jax.Array, srow: jax.Array,
             head = (jnp.full(cap + 1, n, I32)
                     .at[tgt].set(i, mode="drop")[:cap])
         hp = jnp.minimum(head, n - 1)
-        stride = n / cap                # heads stride by rows-per-key
-        if stride <= 8:
-            # windowed directory fetch (kernel cost grows with the window,
-            # so past ~8 rows/key the serialized gather wins outright).
-            # margin=2: head positions fluctuate with the group-size draw
-            # (the r5 tile-aligned windows removed the old formulation's
-            # incidental extra-W slack that used to absorb this -- without
-            # the margin the exp-4 12.6M-row builds silently degraded to
-            # the serialized gather, 226 -> 429 ms)
-            W, C = stride_params(stride, margin=2.0)
-
-            def fetch(vals):
-                return safe_lookup(vals, hp, W=W, C=C)
-        else:
-            def fetch(vals):
-                return vals.view(U32)[hp] if vals.dtype != U32 else vals[hp]
-        if jnp.dtype(kd).itemsize == 8:
-            hi = fetch((skey >> jnp.uint64(32)).astype(U32))
-            lo = fetch(skey.astype(U32))
-            skey_hp = (hi.astype(jnp.uint64) << jnp.uint64(32)) | lo
-        else:
-            skey_hp = fetch(skey)
-        ukey = jnp.where(pad, ukey_pad(kd), skey_hp)
+        ukey = jnp.where(pad, ukey_pad(kd), skey[hp])
         group_start = jnp.where(pad, n, head)
-        group_len = jnp.where(pad, 0, fetch(run_len).view(I32))
-        first_row = jnp.where(pad, n, fetch(srow).view(I32))
+        group_len = jnp.where(pad, 0, run_len[hp].astype(I32))
+        first_row = jnp.where(pad, n, srow[hp].astype(I32))
 
     if with_gid_by_row:
         gid_by_row = inverse_permute(srow, gid)
@@ -398,9 +358,9 @@ def drop_pad_groups(groups: "GroupIndex") -> "GroupIndex":
 def is_sorted_ascending(keys: jax.Array) -> jax.Array:
     """True iff ``keys`` is already ascending -- one fused reduction read.
 
-    The check costs one pass at copy bandwidth (~0.1 ms at 2^24 on v5e)
-    against the ~50 ms 2-op sort it lets :func:`sort_rows_maybe_skip`
-    skip, so every build and probe strand runs it unconditionally.
+    The check is one read pass, far cheaper than the sort it lets
+    :func:`sort_rows_maybe_skip` skip, so every build and probe strand runs
+    it unconditionally.
     """
     if keys.shape[0] < 2:
         return jnp.bool_(True)
@@ -414,8 +374,8 @@ def sort_rows_maybe_skip(keys: jax.Array, *payloads: jax.Array):
 
     Presorted key columns are common -- clustered primary keys, the output
     of a previous sorted operator, merge-exchange streams -- and the phase-1
-    sort is the dominant term of every build and unsorted-probe strand
-    (PERF.md: 36-50 ms of 73-230 ms at 2^24).  Skipping is exact: a STABLE
+    sort is a large term of every build and unsorted-probe strand.
+    Skipping is exact: a STABLE
     sort of an ascending stream returns the stream itself with
     ``srow == arange`` and payloads untouched, so counters and chain-order
     semantics are bit-identical (the reference has no such fast path; its
@@ -447,6 +407,22 @@ def sort_with_rows(keys: jax.Array):
     return skey, srow, n_keys
 
 
+def safe_lookup(values: jax.Array, keys: jax.Array) -> jax.Array:
+    """``values[keys]``, with 0 wherever a key is < 0 or >= len(values).
+
+    The strands' one table-access primitive: a plain gather.  ``keys`` of
+    any integer dtype are read as i32, so u32 keys >= 2^31 miss like
+    negative ones.  The result keeps ``values``' dtype.
+    """
+    T = values.shape[0]
+    k = keys.astype(I32)
+    if T == 0:
+        return jnp.zeros(k.shape, values.dtype)
+    hit = (k >= 0) & (k < T)
+    return jnp.where(hit, values[jnp.clip(k, 0, T - 1)],
+                     jnp.zeros((), values.dtype))
+
+
 def lookup(groups: "GroupIndex", probe_keys: jax.Array):
     """Find each probe key's group id in a GroupIndex.
 
@@ -471,10 +447,8 @@ def merge_lookup(groups: "GroupIndex", probe_keys: jax.Array,
                  mask: jax.Array | None = None):
     """Sort-merge alternative to :func:`lookup` -- same ``(g, hit)`` contract.
 
-    TPU rationale: a binary search is ~log2(n_keys) *random gathers*, each of
-    which costs an HBM transaction per element (~10 ns/elem measured on v5e),
-    while sorts and scans stream at memory bandwidth (60 ms vs 3 s for 16.8M
-    probes).  So: concatenate the sorted distinct keys with the probe keys,
+    A binary search is ~log2(n_keys) dependent random gathers per probe;
+    the merge instead streams: concatenate the sorted distinct keys with the probe keys,
     sort once (stable; directory entries precede equal probe keys), propagate
     the last-seen directory entry with cumulative maxima, and scatter results
     back to probe positions.
@@ -514,9 +488,9 @@ def lookup_auto(groups: "GroupIndex", probe_keys: jax.Array,
                 method: str = "auto"):
     """Dispatch between binary-search and sort-merge lookup.
 
-    On TPU the sort-merge path wins whenever the directory or probe side is
-    large (random gathers cost ~10ns/element; sorts stream at bandwidth); on
-    CPU the binary search wins.  ``method``: "auto" | "search" | "merge".
+    "auto" takes the binary search on the CPU and the sort-merge path on an
+    accelerator; which one wins on the GPU is not yet measured.
+    ``method``: "auto" | "search" | "merge".
     """
     if method == "auto":
         method = "search" if jax.default_backend() == "cpu" else "merge"
@@ -529,8 +503,8 @@ def key_direct_index(groups: "GroupIndex", key_domain: int) -> jax.Array:
     """Dense key->group map over a statically known domain [0, key_domain).
 
     ONE narrow scatter at build time buys probes a ONE-gather directory
-    lookup (the merge pass costs ~60 ms per 1M probes on v5e against ~10 ms
-    for the gather; binary search costs log2(n_keys) gathers).  ``-1`` marks
+    lookup (a merge pass sorts the probes; a binary search costs
+    log2(n_keys) gathers).  ``-1`` marks
     absent keys.  ``key_domain`` must be a true upper bound on build key
     values + 1 -- keys at or beyond it would become unreachable.
     """
@@ -584,11 +558,9 @@ def sorted_histogram(b_sorted: jax.Array, num_buckets: int,
                      is_first: jax.Array, run_len: jax.Array):
     """Bucket histogram from an already-sorted bucket column.
 
-    ``jnp.bincount`` lowers to a scatter-ADD, which is catastrophically slow
-    on TPU (measured 2.5 s for 16.8M adds into 1M bins on v5e -- 35x the cost
-    of the sort itself).  When the column is already sorted (every build does
-    a bucket sort anyway), the histogram is free: scatter each run's length at
-    its head with a plain ``set`` (~144 ms for 16.8M rows).  Values sorted to
+    When the column is already sorted (every build does a bucket sort
+    anyway), the histogram needs no scatter-ADD (``jnp.bincount``): scatter
+    each run's length at its head with a plain ``set``.  Values sorted to
     position >= ``num_buckets`` (validity parking) fall off the extended slot.
 
     ``is_first``/``run_len`` come from :func:`run_boundaries` over the same
@@ -609,27 +581,20 @@ def expand(counts: jax.Array, out_size: int, payloads: tuple = (),
     the vectorized unnest (``algebra.hh:510-541``): instead of a per-tuple
     while-loop over SubNodes, every output row materializes in parallel.
 
-    TPU-native formulation: ONE segment-sized scatter marks each non-empty
-    segment's rank at its first output slot; a cumulative max fills the
-    segment ids forward; and EVERYTHING ELSE -- the segment's start
-    offset, every propagated payload, the optional segment length -- rides
-    the Pallas windowed lookup keyed by the resulting NONDECREASING ``p``
-    stream (~0.3 ns/elem where the former per-quantity head scatters cost
-    ~4.9 ns per segment and the out-sized gathers ~10 ns/elem).  Round-5
-    change: the previous formulation paid a SECOND P-update scatter for
-    the start offsets plus one more per strong-expansion payload -- at
-    exp-4 scale (16.8M segments into 12.6M slots, twice per strand) those
-    scatters were ~45% of the whole Ndu probe strand.
+    Formulation: ONE segment-sized scatter marks each non-empty segment's
+    rank at its first output slot; a cumulative max fills the segment ids
+    forward; and everything else -- the segment's start offset, every
+    propagated payload, the optional segment length -- is a gather keyed by
+    the resulting NONDECREASING ``p`` stream.
 
     ``payloads``: optional per-segment i32 arrays to propagate to every
-    output slot of their segment (windowed ``pay[p]``; bit patterns are
-    carried exactly, so negative markers survive).
+    output slot of their segment (``pay[p]``; bit patterns are carried
+    exactly, so negative markers survive).
 
     ``with_seg_len`` appends the expansion segment's length per output slot
     (== ``counts[p]`` whenever the segment is fully materialized; the last
     segment of a truncated expansion reports its CUT length) -- one more
-    windowed lookup of the segment-end offsets (the emit_pos consumers
-    need this).
+    gather of the segment-end offsets (the emit_pos consumers need this).
 
     Returns ``(p, within, valid, total, *propagated_payloads[, seg_len])``.
     """
@@ -640,10 +605,6 @@ def expand(counts: jax.Array, out_size: int, payloads: tuple = (),
     off = (cum - counts).astype(I32)
 
     from .scan import engine_multi_scan
-    # lazy: strands_windowed imports layout at module load (safe_lookup is
-    # the engine's windowed-access front door; the cycle resolves at call
-    # time)
-    from .strands_windowed import safe_lookup, stride_params
 
     is_head = counts > 0
     tgt = jnp.where(is_head, off, out_size)  # empty segments scatter off-end
@@ -654,23 +615,15 @@ def expand(counts: jax.Array, out_size: int, payloads: tuple = (),
     valid_p = p >= 0
     pc = jnp.maximum(p, 0)
 
-    # p advances ~P/out_size per slot (plus jumps over empty segments);
-    # the 2x margin absorbs count fluctuation like every stride-keyed
-    # lookup.  Coverage is self-guarded: safe_lookup patches or falls
-    # back (and records the route) on adversarial distributions.
-    Wp, Cp = stride_params(P / max(out_size, 1), margin=2.0)
-    start = safe_lookup((off + 1).view(U32), pc, W=Wp, C=Cp).astype(I32) - 1
+    start = safe_lookup(off, pc)
     within = j - start
     valid = (j < total) & valid_p
 
-    props = [safe_lookup(jnp.asarray(pay, I32).view(U32), pc,
-                         W=Wp, C=Cp).view(I32)
-             for pay in payloads]
+    props = [safe_lookup(jnp.asarray(pay, I32), pc) for pay in payloads]
     if with_seg_len:
         # segment end = cum[p], capped by the materialized buffer and the
         # true total; distance to start IS the (possibly cut) length
-        seg_end = safe_lookup((cum.astype(I32) + 1).view(U32), pc,
-                              W=Wp, C=Cp).astype(I32) - 1
+        seg_end = safe_lookup(cum.astype(I32), pc)
         seg_end = jnp.minimum(seg_end,
                               jnp.minimum(jnp.int32(out_size),
                                           total.astype(I32)))

@@ -1,14 +1,11 @@
-"""Windowed (sorted-probe) experiment strands: the gather-free fast path.
+"""Sorted-probe experiment strands: the engine's device probe path.
 
-PERF.md's roofline shows XLA's random gather is a serialized ~8.6 ns/element
-loop while the Pallas windowed lookup (``windowed.py``) resolves (nearly)
-sorted streams at ~0.3 ns/element (29x).  These strands restructure the
-experiment probe pipelines so that EVERY large random access becomes a
-windowed lookup:
+These strands restructure the experiment probe pipelines around ONE sort of
+the probe keys:
 
 * probes are sorted by key once (or arrive sorted: exp-4's ``R.k`` is an
-  iota, ``main_experiment4.cc:522-525``) -- the sorted keys stream through
-  the table's ``direct`` / ``key_direct`` arrays in windows;
+  iota, ``main_experiment4.cc:522-525``) and then look up the table's
+  ``direct`` / ``key_direct`` arrays;
 * every downstream per-match array access inherits (near-)sortedness:
   group ids ``g`` are assigned in sorted-key order, so ``group_len[g]``,
   ``group_start[g]``, ``main_pos[g]`` are nondecreasing streams with -1
@@ -17,23 +14,18 @@ windowed lookup:
   segment index ``p``;
 * emission order is by sorted key rather than probe order, and within a
   group it is ascending insertion order rather than the reference's
-  [first, rest LIFO] -- ascending keeps the expansion's group_rows
-  positions near-contiguous, which the windowed lookup's coverage needs
-  even for million-row zipf groups.  Result sets are bit-equal as
-  multisets (the engine's standing contract, SURVEY §7.4) and all
-  counters (c_htProbe / c_htProbeCmp / c_unnest / c_top) are bit-equal to
-  the reference, pinned by differential tests.  (The clarity-layer
-  ops -- unnest / materialize / algebra -- keep exact LIFO emission via
-  layout.emit_pos.)
+  [first, rest LIFO].  Result sets are bit-equal as multisets (the
+  engine's standing contract, SURVEY §7.4) and all counters (c_htProbe /
+  c_htProbeCmp / c_unnest / c_top) are bit-equal to the reference, pinned
+  by differential tests.  (The clarity-layer ops -- unnest / materialize /
+  algebra -- keep exact LIFO emission via layout.emit_pos.)
 
-Every lookup guards itself: ``safe_lookup`` checks window coverage on
-device and falls back to the XLA gather in the same jit (``lax.cond``), so
-adversarial key distributions stay correct, just slower.
+Every table access is ``layout.safe_lookup``: a plain gather that reads
+keys outside the table as 0 (a miss).
 """
 
 from __future__ import annotations
 
-import functools
 from functools import partial
 from typing import NamedTuple
 
@@ -42,357 +34,58 @@ import jax.numpy as jnp
 from jax import lax
 
 from .hashing import bucket_of, hash_key
-from .layout import I32, U32, expand
-from .windowed import DEFAULT_C, DEFAULT_W, chunk_bases, windowed_lookup
-
-#: Route codes surfaced per strand (``route_worst``): 0 = every lookup took
-#: the pure windowed kernel, 1 = at least one lookup patched <= cap uncovered
-#: chunks, 2 = at least one lookup degraded to the serialized XLA gather.
-ROUTE_WINDOWED, ROUTE_PATCHED, ROUTE_GATHER = 0, 1, 2
-
-# Trace-time route collection: each strand pushes a record list; every
-# safe_lookup traced inside it appends its (route, nbad) scalars, and the
-# strand folds them into ``route_worst`` / ``route_nbad`` output keys.  This
-# is what makes the fast path OBSERVABLE: a routing regression (VERDICT r3
-# weak #1/#4 -- silent whole-stream fallback to the 144 ms serialized
-# gather) now shows up in bench.py's route assert and in CPU tests, not
-# just in a slower wall clock.  (A ``None`` sentinel suppresses recording
-# inside ``lax.cond`` branches, whose tracers must not leak out.)
-_route_records: list = []
-
-
-def _record_route(route, nbad):
-    if _route_records and _route_records[-1] is not None:
-        _route_records[-1].append((route, nbad))
-
-
-class _suppress_routes:
-    """Disable route recording inside a ``lax.cond`` branch (its tracers
-    cannot escape to the enclosing strand's outputs)."""
-
-    def __enter__(self):
-        _route_records.append(None)
-
-    def __exit__(self, *exc):
-        _route_records.pop()
-
-
-#: When True, strands additionally emit per-lookup ``route_i_<n>`` /
-#: ``route_i_<n>_nbad`` keys (trace order of the safe_lookups inside the
-#: strand) -- the attribution tool for a route_worst regression
-#: (tools/routedebug.py).  Trace-time flag: jax.clear_caches() after flip.
-ROUTE_VERBOSE = False
-
-
-def _with_route(fn):
-    """Wrap a strand: collect every inner safe_lookup's route and add
-    ``route_worst`` (max route code) and ``route_nbad`` (max uncovered
-    window chunks seen by any single lookup) to the output dict."""
-
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
-        _route_records.append([])
-        try:
-            out = fn(*args, **kwargs)
-        finally:
-            rec = _route_records.pop()
-        if isinstance(out, dict):
-            out = dict(out)
-            if rec:
-                out["route_worst"] = functools.reduce(
-                    jnp.maximum, (r for r, _ in rec))
-                out["route_nbad"] = functools.reduce(
-                    jnp.maximum, (b for _, b in rec))
-                if ROUTE_VERBOSE:
-                    for i, (r, b) in enumerate(rec):
-                        out[f"route_i_{i}"] = r
-                        out[f"route_i_{i}_nbad"] = b
-            else:
-                out["route_worst"] = jnp.int32(ROUTE_WINDOWED)
-                out["route_nbad"] = jnp.int32(0)
-        return out
-
-    return wrapper
-
-
-def _pad_table(arr: jax.Array, W: int = DEFAULT_W) -> jax.Array:
-    """Zero-pad a u32 value array to the windowed kernel's size contract
-    (>= W + 1024, multiple of 1024)."""
-    T = arr.shape[0]
-    Tp = max(W + 1024, -(-T // 1024) * 1024)
-    if Tp != T:
-        arr = jnp.concatenate([arr, jnp.zeros(Tp - T, arr.dtype)])
-    return arr
-
-
-def safe_lookup(values: jax.Array, keys: jax.Array,
-                W: int = DEFAULT_W, C: int = DEFAULT_C,
-                max_patch: int = 64) -> jax.Array:
-    """``values[keys]`` with miss-as-zero semantics, windowed when coverage
-    holds, XLA gather otherwise (one ``lax.cond``; the coverage check is a
-    cheap reduction riding the key stream).
-
-    ``values``: u32 (or i32, viewed) array; entries must be < 2^31 when
-    i32-viewed data is decoded downstream.  ``keys``: i32, any key < 0 or
-    >= len(values) yields 0.  Coverage needs each C-chunk's in-range key
-    spread <= W; when the stream's stride per element exceeds ~W/C, pass a
-    smaller ``C`` and/or larger ``W`` (see :func:`stride_params`).
-
-    Up to ``max_patch`` uncovered chunks are repaired individually: the
-    windowed pass runs anyway and the bad chunks' elements (wrong -> 0 in
-    the kernel) are re-resolved with a small (max_patch * C)-element
-    gather + scatter (~1 ms) instead of degrading the WHOLE stream to the
-    serialized 8.6 ns/elem gather (144 ms at 2^24).  This is what makes
-    segment-sorted probe streams (ops/sort.py:sort_segmented) viable: a
-    K-segment stream re-walks the value range K times, so expansion-keyed
-    lookups see ~K boundary chunks whose spread exceeds W.
-    """
-    values = values.view(U32) if values.dtype != U32 else values
-    T = values.shape[0]
-    keys = keys.astype(I32)
-    n = keys.shape[0]
-    pad = (-n) % C
-    kp = (jnp.concatenate([keys, jnp.full(pad, -1, I32)]) if pad else keys)
-    vp = _pad_table(values, W)
-
-    # per-chunk coverage (same window policy as the kernel: chunk_bases)
-    k2 = kp.reshape(-1, C)
-    nchunks = k2.shape[0]
-    bases = chunk_bases(kp, vp.shape[0], C, W)
-    delta = k2 - bases[:, None]
-    in_range = (k2 >= 0) & (k2 < T)
-    covered = (~in_range) | ((delta >= 0) & (delta < W + 1024))
-    bad = ~jnp.all(covered, axis=1)                      # (nchunks,)
-    nbad = jnp.sum(bad.astype(I32))
-    # the patch budget scales with the stream: a long segment-sorted stream
-    # legitimately produces ~nchunks/segment_chunks boundary chunks, and a
-    # fixed budget of 64 silently tipped the canonical 2^24 stream into the
-    # serialized gather in round 3 -- each patched chunk costs ~C gathered
-    # elements (~10 us), so even the scaled cap stays ~ms
-    cap = min(max(max_patch, nchunks // 64), nchunks)
-
-    def windowed(_):
-        return windowed_lookup(vp, kp, W=W, C=C)
-
-    def patched(_):
-        out = windowed_lookup(vp, kp, W=W, C=C)
-        # compact the bad chunk ids with cumsum + scatter: jnp.nonzero's
-        # size= path lowers to a top-k-style variadic reduce-window whose
-        # scoped-VMEM buffer scales as nchunks * cap (19 MB > the 16 MB
-        # limit at nchunks = 2^14, cap = 256 -- measured compile failure)
-        pos = jnp.cumsum(bad.astype(I32)) - 1          # rank among bad
-        tgt = jnp.where(bad & (pos < cap), pos, cap)
-        bad_ids = (jnp.full(cap + 1, nchunks, I32)
-                   .at[tgt].set(jnp.arange(nchunks, dtype=I32),
-                                mode="drop")[:cap])
-        rows = (bad_ids.astype(I32)[:, None] * jnp.int32(C)
-                + jnp.arange(C, dtype=I32)[None, :])     # (cap, C)
-        safe_rows = jnp.clip(rows, 0, kp.shape[0] - 1)
-        pkeys = kp[safe_rows]
-        p_ok = (pkeys >= 0) & (pkeys < T)
-        pvals = jnp.where(p_ok, values[jnp.clip(pkeys, 0, T - 1)],
-                          jnp.uint32(0))
-        # fill ids scatter to rows >= len(kp): dropped
-        return out.at[rows.reshape(-1)].set(pvals.reshape(-1), mode="drop")
-
-    def gather(_):
-        in_r = (kp >= 0) & (kp < T)
-        safe = jnp.clip(kp, 0, T - 1)
-        return jnp.where(in_r, values[safe], jnp.uint32(0))
-
-    route = jnp.where(nbad == 0, jnp.int32(ROUTE_WINDOWED),
-                      jnp.where(nbad <= cap, jnp.int32(ROUTE_PATCHED),
-                                jnp.int32(ROUTE_GATHER)))
-    _record_route(route, nbad)
-    # one flat 3-way switch, NOT cond(windowed, cond(patched, gather)):
-    # with the nested structure XLA speculatively executes the untaken
-    # patched branch's (cap, C) gather once cap >= 256 -- +8.3 ms per
-    # lookup on the headline stream, reproduced and pinned in
-    # artifacts/r5/safeprof{2,3,4}.log (the flat switch costs the branch
-    # nothing: 15.0 -> 6.7 ms at 2^24, W=8192)
-    out = lax.switch(route, [windowed, patched, gather], None)
-    return out[:n] if pad else out
-
-
-def stride_params(stride: float, margin: float = 1.0) -> tuple:
-    """(W, C) for a key stream advancing ~``stride`` positions per element
-    (e.g. directory head positions: stride = rows per distinct key).
-
-    C is pinned at 1024 (the kernel's (8, 128) block floor); W grows to
-    keep C * stride * margin <= W, up to 8x -- the kernel's cost is linear
-    in W, so past stride ~8 the windowed lookup loses to the serialized
-    gather and the coverage check routes to the fallback anyway.
-
-    ``margin=1`` suits DETERMINISTIC streams (the expansion's segment-index
-    ``p`` advances exactly C*stride per chunk, no fluctuation); randomly-
-    fluctuating streams (CSR positions keyed by random sorted draws) need
-    ``margin=2`` like window_for_chunk, or ~the expected-spread fraction of
-    chunks lands past the window (simulated 618/4096 uncovered at the Crs
-    shape with margin 1 -- tests/test_sort_segmented.py)."""
-    C = DEFAULT_C
-    need = int(C * max(stride, 1.0) * margin)
-    W = DEFAULT_W
-    while W < need and W < 8192:
-        W *= 2
-    return W, C
+from .layout import I32, U32, expand, safe_lookup
 
 
 class SortedProbes(NamedTuple):
-    """The result of :func:`_sort_probes`.  A NAMED tuple: round 4 shipped
-    a crash because the return grew a 4th field and one positional-unpack
-    call site (parallel/ring.py) silently kept arity 3 -- named fields make
-    any future growth a no-op for existing callers (VERDICT r4 weak #6)."""
+    """The result of :func:`_sort_probes` (named fields, so call sites
+    never depend on the tuple's arity)."""
     skey: jax.Array       #: sorted keys, u32
     srow: jax.Array       #: original row ids, i32
-    lookup_w: int         #: window width downstream key-keyed lookups need
-    segment: int | None   #: probe-sort segment size (None = global sort)
 
 
 def _sort_probes(pk: jax.Array, domain: int | None = None) -> SortedProbes:
-    """(sorted keys u32, original rows i32, lookup W, segment) -- the one
-    sort of the strand.  The returned ``W`` (a static python int) is the
-    window width downstream key-keyed lookups need: segments are capped at
-    MAX_SEGMENT (scoped-VMEM compile limit), so large domains keep their
-    2x coverage margin through wider windows instead of longer segments
-    (ops/sort.py:window_for_chunk).  ``segment`` (None = global sort) lets
-    the caller size NON-key-keyed downstream windows too: a segment-sorted
-    stream's expansion revisits the whole table-row range once PER SEGMENT,
-    so CSR position streams (``group_start[g] + within``) spread
-    ``P/segment`` times wider per window chunk than under a global sort --
-    left at the default width they silently fail coverage and the whole
-    emission degrades to the serialized gather (the round-4 Crs finding:
-    191 ms vs 49 ms for 16.8M emitted rows).
+    """(sorted keys u32, original rows i32) -- the one sort of the strand.
 
     With a known key ``domain`` (the table's ``direct`` / ``key_direct``
-    extent) the global 2-op sort drops to a segmented batched sort
-    (ops/sort.py: 49.9 -> 38.2 ms at 2^24 probes over a 2^20 domain on
-    v5e): each segment covers the domain, so every window chunk still
-    spans <= W keys, segment boundaries align with window chunks, and
-    out-of-domain (miss) keys sort to each segment's tail exactly as they
-    sort to the global tail.  Downstream expansion-keyed lookups see ~K
-    uncovered boundary chunks, which safe_lookup patches individually.
+    extent) the global 2-op sort becomes a segmented batched sort where
+    :func:`ops.sort.probe_sort_chunk` allows it: each segment covers the
+    domain and out-of-domain (miss) keys sort to each segment's tail
+    exactly as they sort to the global tail.
 
     A probe stream that is ALREADY ascending (pre-partitioned input, the
     output of a sorted operator) skips the sort entirely at runtime: the
-    monotonicity check is one reduction read (layout.is_sorted_ascending)
-    and a globally sorted stream satisfies every downstream windowed-
-    coverage invariant of both the global and the segmented layout.
+    monotonicity check is one reduction read (layout.is_sorted_ascending).
     """
     from .layout import is_sorted_ascending
-    from .sort import (_has_vma, _use_bitonic, probe_sort_chunk,
-                       sort_segmented, window_for_chunk)
+    from .sort import probe_sort_chunk, sort_segmented
     P = pk.shape[0]
     pku = pk.astype(U32)
     # vma-typed identity permutation (see layout.sort_rows_maybe_skip)
     rowv = jnp.arange(P, dtype=I32) + (pku ^ pku).astype(I32)
     chunk = probe_sort_chunk(P, domain)
-    W = window_for_chunk(chunk, domain) if domain else DEFAULT_W
     if chunk is None:
-        if domain:
-            # global-sort sparse-stream margin (see _sort_bucket_ids): a
-            # sorted chunk spans ~C * domain / P keys; keep 2x headroom
-            W = max(W, stride_params(domain / max(P, 1), margin=2.0)[0])
-        skey, srow = lax.cond(
-            is_sorted_ascending(pku),
-            lambda k: (k, rowv),
-            lambda k: lax.sort((k, rowv), num_keys=1),
-            pku)
-        return SortedProbes(skey, srow, W, None)
-
-    # Packed 1-op phase-1 fast path (ops/bitonic.py:
-    # bitonic_sort_packed_segmented): small dense domains let the sort's
-    # first levels run as a ONE-op network on (key << sub | local_id)
-    # words.  It requires every key (incl. misses past the domain) under
-    # 2^key_bits -- a runtime property, so the route is a flat 3-way
-    # switch on (already-sorted, all-keys-small, anything-else).
-    key_bits = max(int(domain - 1).bit_length(), 1)
-    packed_ok = (_use_bitonic() and not _has_vma(pku)
-                 and 32 - key_bits >= 9 and chunk >= 512)
-    if packed_ok:
-        from .bitonic import MAX_SEGMENT_BITONIC, \
-            bitonic_sort_packed_segmented
-        packed_ok = chunk <= MAX_SEGMENT_BITONIC
-    if packed_ok:
-        def packed(k):
-            sk, lid = bitonic_sort_packed_segmented(k, chunk, key_bits)
-            sr = (lid.reshape(P // chunk, chunk)
-                  + (jnp.arange(P // chunk, dtype=I32)
-                     * jnp.int32(chunk))[:, None]).reshape(P)
-            return sk, sr
-
-        route = jnp.where(
-            is_sorted_ascending(pku), jnp.int32(0),
-            jnp.where(jnp.max(pku) < jnp.uint32(1 << key_bits),
-                      jnp.int32(1), jnp.int32(2)))
-        skey, srow = lax.switch(
-            route, [lambda k: (k, rowv), packed,
-                    lambda k: sort_segmented(k, chunk, stable=False)],
-            pku)
-        return SortedProbes(skey, srow, W, chunk)
-
-    skey, srow = lax.cond(
-        is_sorted_ascending(pku),
-        lambda k: (k, rowv),
-        # stable=False: duplicate probes of one key are interchangeable
-        # (identical match sets), so the kernel may drop its row-id
-        # tiebreak -- ~25% fewer comparator ops (ops/bitonic.py)
-        lambda k: sort_segmented(k, chunk, stable=False),
-        pku)
-    return SortedProbes(skey, srow, W, chunk)
-
-
-def rows_window(P: int, segment: int | None, n_rows: int,
-                out_size: int) -> tuple:
-    """(W, C) for CSR row-position streams (``group_start[g] + within``)
-    emitted by the expansion of a ``segment``-sorted probe stream.
-
-    Under a global sort the positions advance ~``n_rows / out_size`` per
-    output element; a segmented stream revisits the full ``n_rows`` range
-    once per segment, multiplying the advance rate by ``P / segment``.
-    Position chunks fluctuate with the random key draws, so the window
-    keeps a 2x margin over the expected spread (zero uncovered chunks at
-    all canonical shapes, tests/test_sort_segmented.py)."""
-    nseg = 1 if segment is None else max(P // segment, 1)
-    return stride_params(nseg * n_rows / max(out_size, 1), margin=2.0)
-
-
-def _sort_bucket_ids(b: jax.Array, num_buckets: int):
-    """(ascending bucket-id stream, lookup W) for windowed chain-length
-    sums; segmented when profitable (the -1 dead markers sort to each
-    segment's front, where safe_lookup yields 0).
-
-    On the GLOBAL-sort route the stream is sparse whenever the bucket
-    count approaches the probe count (Crs at P == #buckets): a sorted
-    1024-chunk then spans ~C * #buckets / P ids, exactly the default W
-    with zero margin -- ~1-2% of chunks fluctuate past it (measured 38
-    patched chunks at 2^21/2^21, artifacts/r5/routedebug_crs25.log), so
-    the window carries the same 2x margin as every other stride-sized
-    lookup."""
-    from .sort import probe_sort_chunk, sort_segmented_1op, window_for_chunk
-    P = b.shape[0]
-    chunk = probe_sort_chunk(P, num_buckets)
-    W = window_for_chunk(chunk, num_buckets)
-    if chunk is None:
-        W = max(W, stride_params(num_buckets / max(P, 1), margin=2.0)[0])
-        return lax.sort((b.astype(I32),), num_keys=1)[0], W
-    return sort_segmented_1op(b.astype(I32), chunk), W
+        def sort(k):
+            return lax.sort((k, rowv), num_keys=1)
+    else:
+        def sort(k):
+            return sort_segmented(k, chunk)
+    skey, srow = lax.cond(is_sorted_ascending(pku),
+                          lambda k: (k, rowv), sort, pku)
+    return SortedProbes(skey, srow)
 
 
 def _miss_chain_cmps(table_bucket_len, num_buckets, skey_u32, miss_mask,
                      hashfun="murmur"):
     """Comparison count contributed by missing probes: each walks its full
     bucket chain (``algebra.hh:640-658`` on a miss).  Runs only when misses
-    exist; the bucket-id stream is hash-ordered, so it gets one sort and a
-    windowed lookup (cheaper than the serialized gather from ~512K rows)."""
+    exist."""
     n_miss = jnp.sum(miss_mask.astype(I32))
 
     def walk(_):
         b = bucket_of(hash_key(skey_u32, hashfun), num_buckets)
         b = jnp.where(miss_mask, b, -1)        # live misses only
-        b_sorted, Wb = _sort_bucket_ids(b, num_buckets)
-        with _suppress_routes():  # cond-branch tracers must not leak out
-            return jnp.sum(safe_lookup(table_bucket_len, b_sorted, W=Wb)
-                           .astype(jnp.int64))
+        return jnp.sum(safe_lookup(table_bucket_len, b).astype(jnp.int64))
 
     # inside shard_map (check_vma) both cond branches must agree on how
     # they vary across mesh axes -- mark the constant like the data
@@ -407,16 +100,15 @@ def _miss_chain_cmps(table_bucket_len, num_buckets, skey_u32, miss_mask,
 
 
 @partial(jax.jit, static_argnames=("unique", "nested"))
-@_with_route
 def direct_probe_strand_sorted(table, pk, unique=False, nested=False,
                                mask=None):
-    """Windowed Csr / CsrUU / Nsr probe strand (dense-direct tables).
+    """Sorted Csr / CsrUU / Nsr probe strand (dense-direct tables).
 
     Equivalent to ``models.exp1._chaining_probe_strand`` /
-    ``_nested_probe_strand`` over a dense-direct table: one windowed lookup
-    of the packed ``(row | pos+1 << shift)`` word per sorted probe replaces
-    the serialized 144 ms gather.  Emission is in sorted-key order
-    (multiset-equal); counters are bit-equal (``algebra.hh:625-659``).
+    ``_nested_probe_strand`` over a dense-direct table: one lookup of the
+    packed ``(row | pos+1 << shift)`` word per sorted probe.  Emission is
+    in sorted-key order (multiset-equal); counters are bit-equal
+    (``algebra.hh:625-659``).
 
     ``nested=True`` = the Nsr plan: same packed-word probe, plus the
     positional unnest of singleton groups (c_unnest = matches).
@@ -431,18 +123,16 @@ def direct_probe_strand_sorted(table, pk, unique=False, nested=False,
     n = direct.shape[0]
     live_s = None
     if mask is None:
-        skey, srow, Wk, _ = _sort_probes(pk, domain=n)
+        skey, srow = _sort_probes(pk, domain=n)
     else:
         pk_m = jnp.where(mask, pk.astype(U32), jnp.uint32(0xFFFFFFFF))
         skey, live_i, srow = lax.sort(
             (pk_m, mask.astype(I32), jnp.arange(pk.shape[0], dtype=I32)),
             num_keys=1)
         live_s = live_i > 0
-        from .sort import probe_sort_chunk, window_for_chunk
-        Wk = window_for_chunk(probe_sort_chunk(pk.shape[0], n), n)
     sk = skey.astype(I32)  # keys >= 2^31 go negative = out-of-range = miss
 
-    d = safe_lookup(direct, sk, W=Wk)
+    d = safe_lookup(direct, sk)
     hit = d != 0  # packed words carry a 1-based chain position: never 0
     if live_s is not None:
         hit = hit & live_s
@@ -457,8 +147,8 @@ def direct_probe_strand_sorted(table, pk, unique=False, nested=False,
     if unique or nested:
         cmps = jnp.sum(jnp.where(hit, pos1, 0).astype(jnp.int64)) + miss_cmps
     else:
-        # full-chain walk (no early exit): per-key chain length, windowed
-        cbk = safe_lookup(table.chain_by_key, sk, W=Wk).astype(I32)
+        # full-chain walk (no early exit): per-key chain length
+        cbk = safe_lookup(table.chain_by_key, sk).astype(I32)
         cmps = jnp.sum(jnp.where(hit, cbk, 0).astype(jnp.int64)) + miss_cmps
 
     m = jnp.sum(hit.astype(jnp.int64))
@@ -474,24 +164,19 @@ def direct_probe_strand_sorted(table, pk, unique=False, nested=False,
     return out
 
 
-def _keydirect_probe(table, sk, skey_u32, g=None, live=None, W=DEFAULT_W):
-    """Shared windowed key_direct probe: sorted keys -> (g, hit, glen,
-    pos1, miss_cmps) with -1/0 miss markers throughout.
+def _keydirect_probe(table, sk, skey_u32, g=None, live=None):
+    """Shared key_direct probe: sorted keys -> (g, hit, glen, pos1,
+    miss_cmps) with -1/0 miss markers throughout.
 
     ``g`` short-circuits the key_direct lookup when the caller already has
     the group-id stream (iota/permutation probes: the key_direct image
-    itself); ``live`` gates dead (padded) rows out of the miss count;
-    ``W`` is the segment-aware window width from ``_sort_probes`` (the
-    g stream inherits the key stream's segment restarts, and g spread per
-    chunk is bounded by key spread, so one width serves both).
+    itself); ``live`` gates dead (padded) rows out of the miss count.
     """
     if g is None:
-        g = safe_lookup((table.key_direct + 1).view(U32), sk,
-                        W=W).astype(I32) - 1
+        g = safe_lookup(table.key_direct + 1, sk).astype(I32) - 1
     hit = g >= 0
-    glen = safe_lookup(table.groups.group_len, g, W=W).astype(I32)
-    pos1 = safe_lookup((table.main_pos_by_group + 1).view(U32), g,
-                       W=W).astype(I32)
+    glen = safe_lookup(table.groups.group_len, g).astype(I32)
+    pos1 = safe_lookup(table.main_pos_by_group + 1, g).astype(I32)
     miss = (~hit) if live is None else (live & ~hit)
     miss_cmps = _miss_chain_cmps(table.bucket_main_len, table.num_buckets,
                                  skey_u32, miss, table.hashfun)
@@ -499,21 +184,18 @@ def _keydirect_probe(table, sk, skey_u32, g=None, live=None, W=DEFAULT_W):
 
 
 @partial(jax.jit, static_argnames=("out_size", "do_unnest", "probes_iota",
-                                   "probes_permutation", "presorted",
-                                   "lookup_w", "segment"))
-@_with_route
+                                   "probes_permutation", "presorted"))
 def keydirect_nested_strand_sorted(table, pk, out_size, do_unnest=True,
                                    probes_iota=False,
                                    probes_permutation=False,
                                    mask=None, presorted=False,
-                                   srow_values=None, lookup_w=None,
-                                   segment=None):
-    """Windowed Nrs / NrsNU probe strand (key_direct nested tables).
+                                   srow_values=None):
+    """Sorted Nrs / NrsNU probe strand (key_direct nested tables).
 
-    The sorted group-id stream makes every per-group array access windowed;
-    the unnest expansion walks ``group_rows`` in CSR order (windowed) and
-    recovers original probe ids through ``srow[p]`` (windowed -- the
-    segment index p is nondecreasing).  ``probes_iota`` skips the probe
+    The sorted group-id stream makes every per-group array access a
+    nondecreasing gather; the unnest expansion walks ``group_rows`` in CSR
+    order and recovers original probe ids through ``srow[p]`` (the segment
+    index p is nondecreasing).  ``probes_iota`` skips the probe
     sort when the key column is already the identity (exp-4's R.k);
     ``probes_permutation`` replaces it with one inverse-permutation scatter
     when the keys are a permutation of [0, P) (exp-1's R.k,
@@ -524,24 +206,14 @@ def keydirect_nested_strand_sorted(table, pk, out_size, do_unnest=True,
     probe sort entirely: the caller promises ``pk`` is already sorted --
     globally or blockwise (``partition_exchange(sort_within_dest=True)``
     receive streams, circulated ring chunks) -- with any dead rows (mask
-    False) carrying the all-ones key; safe_lookup patches the few
-    segment-boundary window chunks a blockwise stream produces.
+    False) carrying the all-ones key.
     ``srow_values`` (presorted only) replaces the emitted probe ids: pass
     the global row-id payload of a shuffle receive and ``probe_row`` comes
-    out in global coordinates directly, skipping the serialized id-mapping
-    gather the caller would otherwise pay per result row.  ``segment``
-    (presorted only) is the segment size the CALLER's sort used -- a
-    segment-sorted circulating stream revisits the table-row range once per
-    segment, so the emission lookup's window must widen by P/segment just
-    like the locally-sorted path (the round-4 Crs finding, rows_window).
+    out in global coordinates directly, skipping the id-mapping gather the
+    caller would otherwise pay per result row.
     """
     P = pk.shape[0]
     live_s = None
-    seg = segment  # probe-sort segment (overwritten by _sort_probes branch)
-    # presorted block-/segment-sorted streams carry their own coverage
-    # requirement: the caller that sorted them passes the matching window
-    # (ops/sort.py:window_for_chunk); plain sorted streams keep the default
-    Wk = lookup_w or DEFAULT_W
     if presorted:
         assert not (probes_iota or probes_permutation)
         if mask is None:
@@ -567,9 +239,8 @@ def keydirect_nested_strand_sorted(table, pk, out_size, do_unnest=True,
         from .layout import inverse_permute
         skey = jnp.arange(P, dtype=U32)
         srow = inverse_permute(pk.astype(I32), jnp.arange(P, dtype=I32))
-    elif mask is None:
-        skey, srow, Wk, seg = _sort_probes(pk,
-                                           domain=table.key_direct.shape[0])
+    else:
+        skey, srow = _sort_probes(pk, domain=table.key_direct.shape[0])
     sk = skey.astype(I32)
 
     if probes_iota or probes_permutation:
@@ -582,7 +253,7 @@ def keydirect_nested_strand_sorted(table, pk, out_size, do_unnest=True,
                                                          g=g0)
     else:
         g, hit, glen, pos1, miss_cmps = _keydirect_probe(table, sk, skey,
-                                                         live=live_s, W=Wk)
+                                                         live=live_s)
     m = jnp.sum(hit.astype(jnp.int64))
     cmps = jnp.sum(pos1.astype(jnp.int64)) + miss_cmps
 
@@ -592,26 +263,17 @@ def keydirect_nested_strand_sorted(table, pk, out_size, do_unnest=True,
                     nested_hit=hit, nested_probe_row=prow,
                     c_htProbe=m, c_htProbeCmp=cmps, c_top=m)
 
-    gstart_by_p = safe_lookup(table.groups.group_start, g, W=Wk).astype(I32)
+    gstart_by_p = safe_lookup(table.groups.group_start, g).astype(I32)
     p, within, valid, total, = expand(glen, out_size)[:4]
-    # p-keyed lookups advance by ~P/out_size per output slot: widen the
-    # window accordingly (stride > ~2 would otherwise fail coverage and
-    # fall back to the serialized gather)
-    Wp, Cp = stride_params(P / out_size)
-    gst = safe_lookup(gstart_by_p, p, W=Wp, C=Cp).astype(I32)
-    # ascending within-group emission: group_rows positions stay globally
-    # near-contiguous so the windowed lookup always covers (the LIFO
-    # emission offsets of emit_pos() would spread a chunk across a whole
-    # large group -- e.g. zipf's 1.16M-row group -- forcing the gather
-    # fallback).  Result sets are multiset-exact; per-group order here is
-    # insertion order rather than the reference's [first, rest LIFO].
-    Wr, Cr = rows_window(P, seg, table.groups.group_rows.shape[0], out_size)
-    build_row = safe_lookup(table.groups.group_rows, gst + within,
-                            W=Wr, C=Cr).astype(I32)
+    gst = safe_lookup(gstart_by_p, p).astype(I32)
+    # ascending within-group emission: group_rows positions stay
+    # near-contiguous.  Result sets are multiset-exact; per-group order here
+    # is insertion order rather than the reference's [first, rest LIFO].
+    build_row = safe_lookup(table.groups.group_rows, gst + within).astype(I32)
     if probes_iota:
         probe_row = p
     else:
-        probe_row = safe_lookup(srow, p, W=Wp, C=Cp).astype(I32)
+        probe_row = safe_lookup(srow, p).astype(I32)
     return dict(
         probe_row=jnp.where(valid, probe_row, -1),
         build_row=jnp.where(valid, build_row, -1),
@@ -627,19 +289,16 @@ def _merge_groups(ukey: jax.Array, pk: jax.Array):
     The dense ``key_direct`` index cannot exist for u64 keys or sparse u32
     domains; the engine's generic lookup (``layout.merge_lookup``) scatters
     results back to probe order, after which every downstream per-group
-    access is a serialized ~8.6 ns/elem gather.  This variant keeps the
-    merged order instead, so the group-id stream is NONDECREASING and all
-    downstream accesses ride the Pallas windowed lookup -- the same rewrite
-    that carries the u32 strands, extended to any key width
-    (re-implements the group resolution of
+    access is a random gather.  This variant keeps the merged order
+    instead, so the group-id stream is NONDECREASING like the u32 strands',
+    extended to any key width (re-implements the group resolution of
     /root/reference/ht_nested.hh:354-382 for keys with no dense index).
 
     Mechanics: concatenate the directory's unique keys with the probe keys
-    and sort ONCE -- u64 values as (hi, lo) u32 planes, since 64-bit sorts
-    and scatters cost ~2x and ~11-16x their 32-bit twins (CLAUDE.md) -- with
-    the source index as the last sort key, so each equal-key run leads with
-    its directory entry (directory indexes [0, K) < probe indexes).  The
-    run-head payload, one windowed lookup away, IS the group id.
+    and sort ONCE -- u64 values as (hi, lo) u32 planes -- with the source
+    index as the last sort key, so each equal-key run leads with its
+    directory entry (directory indexes [0, K) < probe indexes).  The
+    run-head payload, one gather away, IS the group id.
 
     Returns merged-order ``(skey, g, is_probe, probe_row_by_pos)`` of
     length ``K + P``; ``g`` is -1 where the run head is a probe (key absent
@@ -667,7 +326,6 @@ def _merge_groups(ukey: jax.Array, pk: jax.Array):
             [jnp.ones((1,), bool), skey[1:] != skey[:-1]])
     run_start = lax.cummax(jnp.where(is_first, jnp.arange(M, dtype=I32), -1),
                            0)
-    # run_start advances <= 1 per element: always window-covered
     head = safe_lookup(idx_s, run_start).astype(I32)
     g = jnp.where(head < K, head, -1)
     is_probe = idx_s >= K
@@ -675,29 +333,26 @@ def _merge_groups(ukey: jax.Array, pk: jax.Array):
 
 
 @partial(jax.jit, static_argnames=("out_size", "do_unnest"))
-@_with_route
 def merged_nested_strand_sorted(table, pk, out_size, do_unnest=True):
-    """Windowed nested probe strand for u64 / composite / sparse-domain keys.
+    """Sorted nested probe strand for u64 / composite / sparse-domain keys.
 
     The generic-key twin of :func:`keydirect_nested_strand_sorted`: group
     resolution comes from :func:`_merge_groups` instead of a ``key_direct``
-    index, everything downstream is identical windowed machinery.  Counters
-    equal ``probe_nested`` + ``unnest`` (``ht_nested.hh:354-382``,
+    index, everything downstream is identical.  Counters equal
+    ``probe_nested`` + ``unnest`` (``ht_nested.hh:354-382``,
     ``algebra.hh:435-459, 510-541``); emission is ascending insertion order
-    per group (multiset-equal, the windowed strands' standing contract).
+    per group (multiset-equal, the sorted strands' standing contract).
 
     ``do_unnest=False`` returns the counters plus ``c_expand_total`` (the
     exact unnested size) without materializing -- the one-pass sizing probe
     ``api.join`` uses.
     """
     ukey = table.groups.ukey
-    K, P = ukey.shape[0], pk.shape[0]
-    M = K + P
     skey, g, is_probe, prow_by_pos = _merge_groups(ukey, pk)
 
     glen = safe_lookup(table.groups.group_len, g).astype(I32)
     hit = is_probe & (g >= 0) & (glen > 0)
-    pos1 = safe_lookup((table.main_pos_by_group + 1).view(U32), g).astype(I32)
+    pos1 = safe_lookup(table.main_pos_by_group + 1, g).astype(I32)
     miss_cmps = _miss_chain_cmps(table.bucket_main_len, table.num_buckets,
                                  skey, is_probe & ~hit, table.hashfun)
     m = jnp.sum(hit.astype(jnp.int64))
@@ -712,11 +367,9 @@ def merged_nested_strand_sorted(table, pk, out_size, do_unnest=True):
 
     gstart_by_pos = safe_lookup(table.groups.group_start, g).astype(I32)
     p, within, valid, total = expand(counts, out_size)[:4]
-    Wp, Cp = stride_params(M / out_size)
-    gst = safe_lookup(gstart_by_pos, p, W=Wp, C=Cp).astype(I32)
+    gst = safe_lookup(gstart_by_pos, p).astype(I32)
     build_row = safe_lookup(table.groups.group_rows, gst + within).astype(I32)
-    probe_row = safe_lookup(jnp.maximum(prow_by_pos, 0), p,
-                            W=Wp, C=Cp).astype(I32)
+    probe_row = safe_lookup(jnp.maximum(prow_by_pos, 0), p).astype(I32)
     return dict(
         probe_row=jnp.where(valid, probe_row, -1),
         build_row=jnp.where(valid, build_row, -1),
@@ -727,16 +380,13 @@ def merged_nested_strand_sorted(table, pk, out_size, do_unnest=True):
 
 
 @partial(jax.jit, static_argnames=("out_size", "unique", "do_expand"))
-@_with_route
 def merged_chaining_strand_sorted(table, pk, out_size, unique=False,
                                   do_expand=True):
-    """Windowed chaining probe strand for u64 / sparse-domain keys
+    """Sorted chaining probe strand for u64 / sparse-domain keys
     (generic-key twin of :func:`keydirect_chaining_strand_sorted`;
     ``algebra.hh:625-659``).  ``do_expand=False`` returns counters only
     (the emitted-pair total for chaining IS ``c_htProbe``)."""
     ukey = table.groups.ukey
-    P = pk.shape[0]
-    M = ukey.shape[0] + P
     skey, g, is_probe, prow_by_pos = _merge_groups(ukey, pk)
 
     glen = safe_lookup(table.groups.group_len, g).astype(I32)
@@ -749,24 +399,20 @@ def merged_chaining_strand_sorted(table, pk, out_size, unique=False,
                 "IsBuildKeyUnique probes need the chain-position index")
         counts = hit.astype(I32)
         m = jnp.sum(hit.astype(jnp.int64))
-        pos1 = safe_lookup((table.group_min_pos + 1).view(U32),
-                           g).astype(I32)
+        pos1 = safe_lookup(table.group_min_pos + 1, g).astype(I32)
         miss_cmps = _miss_chain_cmps(table.bucket_len, table.num_buckets,
                                      skey, is_probe & ~hit, table.hashfun)
         cmps = jnp.sum(jnp.where(hit, pos1, 0).astype(jnp.int64)) + miss_cmps
-        row_by_pos = safe_lookup((table.group_chain_first + 1).view(U32),
-                                 g).astype(I32) - 1
+        row_by_pos = safe_lookup(table.group_chain_first + 1, g) - 1
     else:
         counts = jnp.where(hit, glen, 0)
         m = jnp.sum(counts.astype(jnp.int64))
-        # full-chain comparisons for every probe: bucket chain lengths over
-        # the sorted bucket-id stream (dir entries excluded)
+        # full-chain comparisons for every probe: bucket chain lengths
+        # (dir entries excluded)
         b = bucket_of(hash_key(skey, table.hashfun),
                       table.num_buckets).astype(I32)
         b = jnp.where(is_probe, b, -1)
-        b_sorted, Wb = _sort_bucket_ids(b, table.num_buckets)
-        cmps = jnp.sum(safe_lookup(
-            table.bucket_len, b_sorted, W=Wb).astype(jnp.int64))
+        cmps = jnp.sum(safe_lookup(table.bucket_len, b).astype(jnp.int64))
         row_by_pos = None
 
     if not do_expand:
@@ -774,15 +420,13 @@ def merged_chaining_strand_sorted(table, pk, out_size, unique=False,
 
     gstart_by_pos = safe_lookup(table.groups.group_start, g).astype(I32)
     p, within, valid, total = expand(counts, out_size)[:4]
-    Wp, Cp = stride_params(M / out_size)
     if unique:
-        build_row = safe_lookup(row_by_pos, p, W=Wp, C=Cp).astype(I32)
+        build_row = safe_lookup(row_by_pos, p).astype(I32)
     else:
-        gst = safe_lookup(gstart_by_pos, p, W=Wp, C=Cp).astype(I32)
+        gst = safe_lookup(gstart_by_pos, p).astype(I32)
         build_row = safe_lookup(table.groups.group_rows,
                                 gst + within).astype(I32)
-    probe_row = safe_lookup(jnp.maximum(prow_by_pos, 0), p,
-                            W=Wp, C=Cp).astype(I32)
+    probe_row = safe_lookup(jnp.maximum(prow_by_pos, 0), p).astype(I32)
     return dict(
         probe_row=jnp.where(valid, probe_row, -1),
         build_row=jnp.where(valid, build_row, -1),
@@ -792,13 +436,13 @@ def merged_chaining_strand_sorted(table, pk, out_size, unique=False,
 
 
 @partial(jax.jit, static_argnames=("out1", "out2"))
-@_with_route
 def ndu_strand_sorted(tbl_s, tbl_t, keys_iota, out1, out2):
-    """Windowed exp-4 Ndu probe strand (``main_experiment4.cc:832-941``):
+    """Sorted exp-4 Ndu probe strand (``main_experiment4.cc:832-941``):
     scan R -> NestProbe(S) -> NestProbe(T) -> Unnest(T) -> Unnest(S).
 
-    R.k is an iota by construction, so no probe sort is needed; the whole
-    two-probe / two-expansion chain runs on windowed lookups.  Counters and
+    R.k is an iota by construction, so no probe sort is needed; every
+    lookup of the two-probe / two-expansion chain is keyed by a
+    nondecreasing stream.  Counters and
     result multisets equal ``ops.nested.deferred_two_join_strand``.
     """
     sk = keys_iota.astype(I32)
@@ -809,38 +453,33 @@ def ndu_strand_sorted(tbl_s, tbl_t, keys_iota, out1, out2):
     c_rs_cmp = jnp.sum(pos1_s.astype(jnp.int64)) + miss_s
 
     # T probe runs only under the S-hit mask (algebra.hh:451-458)
-    g_t = safe_lookup((tbl_t.key_direct + 1).view(U32), sk).astype(I32) - 1
+    g_t = safe_lookup(tbl_t.key_direct + 1, sk).astype(I32) - 1
     g_t = jnp.where(hit_s, g_t, -1)
     both = g_t >= 0
     glen_t = safe_lookup(tbl_t.groups.group_len, g_t).astype(I32)
-    pos1_t = safe_lookup((tbl_t.main_pos_by_group + 1).view(U32),
-                         g_t).astype(I32)
+    pos1_t = safe_lookup(tbl_t.main_pos_by_group + 1, g_t).astype(I32)
     miss_t = _miss_chain_cmps(tbl_t.bucket_main_len, tbl_t.num_buckets,
                               skey, hit_s & ~both, tbl_t.hashfun)
     c_rt = jnp.sum(both.astype(jnp.int64))
     c_rt_cmp = jnp.sum(pos1_t.astype(jnp.int64)) + miss_t
 
     # Unnest #1 (T): one row per T duplicate of rows surviving both probes
-    P = sk.shape[0]
-    W1, C1 = stride_params(P / out1)       # p1 advances ~P/out1 per slot
-    W2, C2 = stride_params(out1 / out2)    # p2 advances ~out1/out2 per slot
     t_counts = jnp.where(both, glen_t, 0)
     gstart_t_by_p = safe_lookup(tbl_t.groups.group_start, g_t).astype(I32)
     p1, w1, v1, n_un1 = expand(t_counts, out1)[:4]
-    gst_t = safe_lookup(gstart_t_by_p, p1, W=W1, C=C1).astype(I32)
+    gst_t = safe_lookup(gstart_t_by_p, p1).astype(I32)
     t_row = safe_lookup(tbl_t.groups.group_rows, gst_t + w1).astype(I32)
 
     # Unnest #2 (S): expand each (r, t_row) by the S group
     glen_s_m = jnp.where(both, glen_s, 0)
-    s_counts = jnp.where(v1, safe_lookup(glen_s_m, p1,
-                                         W=W1, C=C1).astype(I32), 0)
+    s_counts = jnp.where(v1, safe_lookup(glen_s_m, p1).astype(I32), 0)
     gstart_s_by_p = safe_lookup(tbl_s.groups.group_start, g_s).astype(I32)
-    gst_s_by_p1 = safe_lookup(gstart_s_by_p, p1, W=W1, C=C1).astype(I32)
+    gst_s_by_p1 = safe_lookup(gstart_s_by_p, p1).astype(I32)
     p2, w2, v2, n_un2 = expand(s_counts, out2)[:4]
-    gst_s = safe_lookup(gst_s_by_p1, p2, W=W2, C=C2).astype(I32)
+    gst_s = safe_lookup(gst_s_by_p1, p2).astype(I32)
     s_row = safe_lookup(tbl_s.groups.group_rows, gst_s + w2).astype(I32)
-    t_prop = safe_lookup(t_row, p2, W=W2, C=C2).astype(I32)
-    r_prop = safe_lookup(p1, p2, W=W2, C=C2).astype(I32)  # p1 IS the R row
+    t_prop = safe_lookup(t_row, p2).astype(I32)
+    r_prop = safe_lookup(p1, p2).astype(I32)  # p1 IS the R row
 
     return dict(
         r_row=jnp.where(v2, r_prop, -1),
@@ -855,9 +494,8 @@ def ndu_strand_sorted(tbl_s, tbl_t, keys_iota, out1, out2):
 
 
 @partial(jax.jit, static_argnames=("out1", "out2"))
-@_with_route
 def chj_strand_sorted(tbl_s, tbl_t, keys_iota, out1, out2):
-    """Windowed exp-4 Chj probe strand (``main_experiment4.cc:943-1043``):
+    """Sorted exp-4 Chj probe strand (``main_experiment4.cc:943-1043``):
     Probe(S) materializes every RS pair, each pair probes T with its R key
     (full chain walks, no early exit).  Counters / multisets equal
     ``models.exp4._chj_probe_strand``.
@@ -866,55 +504,45 @@ def chj_strand_sorted(tbl_s, tbl_t, keys_iota, out1, out2):
     skey = keys_iota.astype(U32)
 
     # S probe: all matches per probe (chaining, not unique)
-    g_s = safe_lookup((tbl_s.key_direct + 1).view(U32), sk).astype(I32) - 1
+    g_s = safe_lookup(tbl_s.key_direct + 1, sk).astype(I32) - 1
     hit_s = g_s >= 0
     glen_s = safe_lookup(tbl_s.groups.group_len, g_s).astype(I32)
     c_rs = jnp.sum(glen_s.astype(jnp.int64))
-    # full-chain comparisons: bucket chain length per probe key.  The
-    # bucket stream is hash-ordered (not sorted): sort it once and ride the
-    # windowed lookup -- still far cheaper than the serialized gather.
+    # full-chain comparisons: bucket chain length per probe key
     b_s = bucket_of(hash_key(skey, tbl_s.hashfun), tbl_s.num_buckets)
-    bs_sorted, Wb = _sort_bucket_ids(b_s.astype(I32), tbl_s.num_buckets)
-    c_rs_cmp = jnp.sum(safe_lookup(
-        tbl_s.bucket_len, bs_sorted, W=Wb).astype(jnp.int64))
+    c_rs_cmp = jnp.sum(safe_lookup(tbl_s.bucket_len,
+                                   b_s).astype(jnp.int64))
 
     # materialize RS pairs (expansion #1)
-    P = sk.shape[0]
-    W1, C1 = stride_params(P / out1)
-    W2, C2 = stride_params(out1 / out2)
     gstart_s_by_p = safe_lookup(tbl_s.groups.group_start, g_s).astype(I32)
     p1, w1, v1, n_rs = expand(glen_s, out1)[:4]
-    gst_s = safe_lookup(gstart_s_by_p, p1, W=W1, C=C1).astype(I32)
+    gst_s = safe_lookup(gstart_s_by_p, p1).astype(I32)
     s_row = safe_lookup(tbl_s.groups.group_rows, gst_s + w1).astype(I32)
 
     # each PAIR probes T with the pair's R key == p1 (keys are the iota)
-    g_t_by_p = safe_lookup((tbl_t.key_direct + 1).view(U32), sk).astype(I32) - 1
+    g_t_by_p = safe_lookup(tbl_t.key_direct + 1, sk).astype(I32) - 1
     glen_t_by_p = safe_lookup(tbl_t.groups.group_len, g_t_by_p).astype(I32)
-    t_counts = jnp.where(v1, safe_lookup(glen_t_by_p, p1,
-                                         W=W1, C=C1).astype(I32), 0)
+    t_counts = jnp.where(v1, safe_lookup(glen_t_by_p, p1).astype(I32), 0)
     c_rt = jnp.sum(t_counts.astype(jnp.int64))
-    # per-key full T-chain length: the bucket stream of the iota keys is
-    # hash-ordered (random), so a windowed attempt could never cover --
-    # use the plain gather (domain-sized, one-time per strand)
+    # per-key full T-chain length (domain-sized, once per strand)
     b_dom = bucket_of(hash_key(jnp.arange(tbl_t.key_direct.shape[0],
                                           dtype=U32), tbl_t.hashfun),
                       tbl_t.num_buckets)
     cbk_t = tbl_t.bucket_len[b_dom]
-    # per-pair full T-chain walk: chain length of the pair's key, windowed
-    # over the sorted pair-key stream p1 (keys are iota => key == p1)
+    # per-pair full T-chain walk: chain length of the pair's key, keyed by
+    # the sorted pair-key stream p1 (keys are iota => key == p1)
     cmps_t_by_key = safe_lookup(cbk_t, sk).astype(I32)
     c_rt_cmp = jnp.sum(jnp.where(
-        v1, safe_lookup(cmps_t_by_key, p1,
-                        W=W1, C=C1).astype(I32), 0).astype(jnp.int64))
+        v1, safe_lookup(cmps_t_by_key, p1).astype(I32), 0).astype(jnp.int64))
 
     # expansion #2: one output per T duplicate of each pair
     gstart_t_by_p = safe_lookup(tbl_t.groups.group_start, g_t_by_p).astype(I32)
-    gst_t_by_p1 = safe_lookup(gstart_t_by_p, p1, W=W1, C=C1).astype(I32)
+    gst_t_by_p1 = safe_lookup(gstart_t_by_p, p1).astype(I32)
     p2, w2, v2, n_rst = expand(t_counts, out2)[:4]
-    gst_t = safe_lookup(gst_t_by_p1, p2, W=W2, C=C2).astype(I32)
+    gst_t = safe_lookup(gst_t_by_p1, p2).astype(I32)
     t_row = safe_lookup(tbl_t.groups.group_rows, gst_t + w2).astype(I32)
-    s_prop = safe_lookup(s_row, p2, W=W2, C=C2).astype(I32)
-    r_prop = safe_lookup(p1, p2, W=W2, C=C2).astype(I32)
+    s_prop = safe_lookup(s_row, p2).astype(I32)
+    r_prop = safe_lookup(p1, p2).astype(I32)
 
     return dict(
         r_row=jnp.where(v2, r_prop, -1),
@@ -927,18 +555,16 @@ def chj_strand_sorted(tbl_s, tbl_t, keys_iota, out1, out2):
 
 
 @jax.jit
-@_with_route
 def nnu_strand_sorted(tbl_s, tbl_t, keys_iota):
-    """Windowed exp-4 Nnu probe strand: two nested probes, no unnesting
+    """Sorted exp-4 Nnu probe strand: two nested probes, no unnesting
     (mirrors ``models.exp4._nnu_probe_strand``)."""
     sk = keys_iota.astype(I32)
     skey = keys_iota.astype(U32)
     g_s, hit_s, _, pos1_s, miss_s = _keydirect_probe(tbl_s, sk, skey)
-    g_t = safe_lookup((tbl_t.key_direct + 1).view(U32), sk).astype(I32) - 1
+    g_t = safe_lookup(tbl_t.key_direct + 1, sk).astype(I32) - 1
     g_t = jnp.where(hit_s, g_t, -1)
     both = g_t >= 0
-    pos1_t = safe_lookup((tbl_t.main_pos_by_group + 1).view(U32),
-                         g_t).astype(I32)
+    pos1_t = safe_lookup(tbl_t.main_pos_by_group + 1, g_t).astype(I32)
     miss_t = _miss_chain_cmps(tbl_t.bucket_main_len, tbl_t.num_buckets,
                               skey, hit_s & ~both, tbl_t.hashfun)
     return dict(
@@ -953,13 +579,12 @@ def nnu_strand_sorted(tbl_s, tbl_t, keys_iota):
 
 
 @partial(jax.jit, static_argnames=("out_size", "unique", "presorted",
-                                   "probes_permutation", "lookup_w"))
-@_with_route
+                                   "probes_permutation"))
 def keydirect_chaining_strand_sorted(table, pk, out_size, unique=False,
                                      mask=None, presorted=False,
                                      probes_permutation=False,
-                                     srow_values=None, lookup_w=None):
-    """Windowed Crs-style probe strand (key_direct chaining table,
+                                     srow_values=None):
+    """Sorted Crs-style probe strand (key_direct chaining table,
     ``algebra.hh:625-659``).
 
     ``unique=False``: every probe walks its full bucket chain
@@ -973,13 +598,9 @@ def keydirect_chaining_strand_sorted(table, pk, out_size, unique=False,
     keydirect_nested_strand_sorted).  ``probes_permutation=True``: the
     probe keys are a permutation of [0, P) (exp-1's R.k) -- the sort
     collapses to one inverse-permutation and the key_direct image is read
-    contiguously.  Emission rides the nested strand's
-    expansion machinery; the comparison count's bucket stream is
-    hash-ordered, so it gets its own sort + windowed pass.
+    contiguously.  Emission rides the nested strand's expansion machinery.
     """
     P = pk.shape[0]
-    Wk = lookup_w or DEFAULT_W
-    seg = None  # probe-sort segment (set by the _sort_probes branch)
     if probes_permutation:
         assert not presorted and mask is None and srow_values is None
     if presorted:
@@ -998,14 +619,13 @@ def keydirect_chaining_strand_sorted(table, pk, out_size, unique=False,
     elif probes_permutation:
         # sorted(permutation of [0, P)) == iota; srow == inverse permutation
         # (exp-1's R.k, main_experiment1.cc:425-428) -- no probe sort, and
-        # the key_direct image needs no windowed lookup at all
+        # the key_direct image needs no lookup at all
         from .layout import inverse_permute
         skey = jnp.arange(P, dtype=U32)
         srow = inverse_permute(pk.astype(I32), jnp.arange(P, dtype=I32))
         live_s = None
     else:
-        skey, srow, Wk, seg = _sort_probes(pk,
-                                           domain=table.key_direct.shape[0])
+        skey, srow = _sort_probes(pk, domain=table.key_direct.shape[0])
         live_s = None
     sk = skey.astype(I32)
 
@@ -1015,10 +635,9 @@ def keydirect_chaining_strand_sorted(table, pk, out_size, unique=False,
         g = (kd[:P] if P <= dom
              else jnp.concatenate([kd, jnp.full(P - dom, -1, I32)]))
     else:
-        g = safe_lookup((table.key_direct + 1).view(U32), sk,
-                        W=Wk).astype(I32) - 1
+        g = safe_lookup(table.key_direct + 1, sk).astype(I32) - 1
     hit = g >= 0
-    glen = safe_lookup(table.groups.group_len, g, W=Wk).astype(I32)
+    glen = safe_lookup(table.groups.group_len, g).astype(I32)
 
     if unique:
         if table.group_min_pos.shape[0] == 0:
@@ -1027,41 +646,33 @@ def keydirect_chaining_strand_sorted(table, pk, out_size, unique=False,
                 "IsBuildKeyUnique probes need the chain-position index")
         counts = hit.astype(I32)
         m = jnp.sum(hit.astype(jnp.int64))
-        pos1 = safe_lookup((table.group_min_pos + 1).view(U32),
-                           g, W=Wk).astype(I32)
+        pos1 = safe_lookup(table.group_min_pos + 1, g).astype(I32)
         miss = (~hit) if live_s is None else (live_s & ~hit)
         miss_cmps = _miss_chain_cmps(table.bucket_len, table.num_buckets,
                                      skey, miss, table.hashfun)
         cmps = jnp.sum(pos1.astype(jnp.int64)) + miss_cmps
         # emission source: the first matching row in chain order
-        row_by_p = safe_lookup((table.group_chain_first + 1).view(U32),
-                               g, W=Wk).astype(I32) - 1
+        row_by_p = safe_lookup(table.group_chain_first + 1, g) - 1
     else:
         counts = glen
         m = jnp.sum(glen.astype(jnp.int64))
-        # full-chain comparisons for every LIVE probe: bucket chain
-        # lengths, summed over the sorted bucket-id stream
+        # full-chain comparisons for every LIVE probe: bucket chain lengths
         b = bucket_of(hash_key(skey, table.hashfun),
                       table.num_buckets).astype(I32)
         if live_s is not None:
             b = jnp.where(live_s, b, -1)
-        b_sorted, Wb = _sort_bucket_ids(b, table.num_buckets)
-        cmps = jnp.sum(safe_lookup(
-            table.bucket_len, b_sorted, W=Wb).astype(jnp.int64))
+        cmps = jnp.sum(safe_lookup(table.bucket_len, b).astype(jnp.int64))
         row_by_p = None
 
-    gstart_by_p = safe_lookup(table.groups.group_start, g, W=Wk).astype(I32)
+    gstart_by_p = safe_lookup(table.groups.group_start, g).astype(I32)
     p, within, valid, total = expand(counts, out_size)[:4]
-    Wp, Cp = stride_params(P / out_size)
     if unique:
-        build_row = safe_lookup(row_by_p, p, W=Wp, C=Cp).astype(I32)
+        build_row = safe_lookup(row_by_p, p).astype(I32)
     else:
-        gst = safe_lookup(gstart_by_p, p, W=Wp, C=Cp).astype(I32)
-        Wr, Cr = rows_window(P, seg, table.groups.group_rows.shape[0],
-                             out_size)
-        build_row = safe_lookup(table.groups.group_rows, gst + within,
-                                W=Wr, C=Cr).astype(I32)
-    probe_row = safe_lookup(srow, p, W=Wp, C=Cp).astype(I32)
+        gst = safe_lookup(gstart_by_p, p).astype(I32)
+        build_row = safe_lookup(table.groups.group_rows,
+                                gst + within).astype(I32)
+    probe_row = safe_lookup(srow, p).astype(I32)
     return dict(
         probe_row=jnp.where(valid, probe_row, -1),
         build_row=jnp.where(valid, build_row, -1),

@@ -1,9 +1,9 @@
 """Multi-chip scaling: device meshes, hash-partition shuffles, distributed joins.
 
 The reference is single-process single-threaded (SURVEY.md section 2.6); this
-layer is new design territory, built the TPU way: ``jax.sharding.Mesh`` +
-``shard_map`` with XLA collectives (``all_to_all``, ``psum``) over ICI instead
-of message passing.
+layer is new design territory: ``jax.sharding.Mesh`` + ``shard_map`` with
+XLA collectives (``all_to_all``, ``psum``, ``ppermute``) instead of message
+passing.
 """
 
 from .mesh import make_mesh, shard_axis

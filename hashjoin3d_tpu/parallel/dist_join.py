@@ -78,14 +78,14 @@ def dist_nested_join(mesh: Mesh, num_buckets_per_shard: int,
     (valid-masked).
 
     ``key_domain`` (a static upper bound on key values + 1, when known)
-    switches the shard-local probe to the windowed sorted strand
-    (ops/strands_windowed.py) -- the same rewrite that took the
-    single-chip probes 5x (PERF.md), applied per shard.  The probe
+    switches the shard-local probe to the sorted keydirect strand
+    (ops/strands_windowed.py), the single-card probe path applied per
+    shard.  The probe
     exchange then also key-sorts within each destination
     (``sort_within_dest``), so received streams arrive blockwise sorted
     and the strand runs with NO local re-sort (``presorted``), and the
-    global probe ids ride the strand's windowed ``srow`` lookup instead
-    of a serialized out_capacity-sized mapping gather.
+    global probe ids ride the strand's ``srow`` lookup instead of an
+    out_capacity-sized mapping gather.
 
     ``n_keys`` (a static upper bound on DISTINCT keys received per shard,
     when known -- e.g. ``min(global distinct keys, key_domain)``) switches
@@ -97,7 +97,7 @@ def dist_nested_join(mesh: Mesh, num_buckets_per_shard: int,
     Together these remove most of the distributed path's overhead over
     the single-chip engine (tools/dist_overhead.py; PERF.md).
 
-    ``merged`` routes the shard-local probe through the MERGED windowed
+    ``merged`` routes the shard-local probe through the MERGED sorted
     strand (``ops/strands_windowed.py:merged_nested_strand_sorted``) --
     the fast path for keys with no dense index (u64 / composite / sparse
     u32 domains).  Default ``None`` auto-selects it for 64-bit keys when
@@ -134,16 +134,11 @@ def dist_nested_join(mesh: Mesh, num_buckets_per_shard: int,
             ns, probe_capacity, sort_within_dest=fast)
 
         if fast:
-            from ..ops.sort import window_for_chunk
             from ..ops.strands_windowed import keydirect_nested_strand_sorted
-            # the receive stream is ns sorted blocks of probe_capacity rows,
-            # each spanning the whole key domain: size the lookup window to
-            # the per-block spread (a too-narrow default would silently
-            # degrade big shards to the serialized gather)
+            # the receive stream is ns sorted blocks of probe_capacity rows
             out = keydirect_nested_strand_sorted(
                 table, pkeys, out_capacity, mask=pvalid, presorted=True,
-                srow_values=ppay["row"],
-                lookup_w=window_for_chunk(probe_capacity, key_domain))
+                srow_values=ppay["row"])
             prow_l, brow_l = out["probe_row"], out["build_row"]
             ovalid = prow_l >= 0
             total = out["c_unnest"]
@@ -188,7 +183,7 @@ def dist_nested_join(mesh: Mesh, num_buckets_per_shard: int,
         num_matches=P(), num_cmps=P(), num_unnested=P(), overflow=P(),
         probe_row=P(axis), build_row=P(axis), out_valid=P(axis),
     )
-    # check_vma stays at its default (on): the windowed strand's
+    # check_vma stays at its default (on): the sorted strand's
     # varying-axis types are annotated where needed, so the checker passes
     return jax.jit(shard_map(step, mesh=mesh, in_specs=specs_in,
                              out_specs=specs_out))
@@ -202,10 +197,10 @@ def dist_chaining_join(mesh: Mesh, num_buckets_per_shard: int,
                        n_keys: int | None = None,
                        merged: bool | None = None):
     """Distributed chaining hash join; see :func:`dist_nested_join`
-    (``key_domain`` likewise enables the presorted windowed shard-local
+    (``key_domain`` likewise enables the presorted sorted shard-local
     probe; ``n_keys`` the fused compacted shard build with global-id
     emission, including the ``unique`` early-exit index; ``merged`` the
-    windowed merged strand for u64/sparse keys, auto for 64-bit)."""
+    merged sorted strand for u64/sparse keys, auto for 64-bit)."""
     ns = mesh.shape[axis]
 
     def step(build_keys, probe_keys):
@@ -237,13 +232,11 @@ def dist_chaining_join(mesh: Mesh, num_buckets_per_shard: int,
             ns, probe_capacity, sort_within_dest=fast)
 
         if fast:
-            from ..ops.sort import window_for_chunk
             from ..ops.strands_windowed import (
                 keydirect_chaining_strand_sorted)
             out_k = keydirect_chaining_strand_sorted(
                 table, pkeys, out_capacity, unique=unique, mask=pvalid,
-                presorted=True, srow_values=ppay["row"],
-                lookup_w=window_for_chunk(probe_capacity, key_domain))
+                presorted=True, srow_values=ppay["row"])
             prow_l, brow_l = out_k["probe_row"], out_k["build_row"]
             ovalid = prow_l >= 0
             total = out_k["total"]

@@ -1,12 +1,13 @@
 """Hierarchical (host x chip) distribution: 2D mesh + two-hop exchange.
 
 The 1D joins in ``dist_join.py`` treat all devices as one flat axis -- right
-for a single ICI domain.  Across hosts, links are asymmetric: chips within a
-host connect over ICI (fast), hosts connect over DCN (slow, per-message
-overhead).  The classic remedy is a **hierarchical all_to_all**: route every
-row first to the correct *chip column* inside its own host (ICI hop), then
-exchange along the host axis in one aggregated message per host pair (DCN
-hop).  Each DCN message carries all rows for one (src_host, dst_host) pair
+for the cards of one host, which NVLink joins all to all.  Across hosts,
+links are asymmetric: cards within a host connect over NVLink (fast), hosts
+over the network (slow, per-message overhead).  The classic remedy is a
+**hierarchical all_to_all**: route every row first to the correct *chip
+column* inside its own host (intra-host hop), then exchange along the host
+axis in one aggregated message per host pair (network hop).  Each network
+message carries all rows for one (src_host, dst_host) pair
 instead of H*C smaller ones.
 
 Shard numbering: global shard of a key = ``shard_of_key(k, H*C)``; its owner
@@ -56,7 +57,7 @@ def _exchange_1hop(axis_name: str, dest: jax.Array, cols: list[jax.Array],
     halves travel as i32 views; an i32 compare would order 0x8.. before
     0x0..).  Each receive block then arrives ascending with its dead
     slots -- the all-ones fill -- at the tail, i.e. the presorted layout
-    the windowed probe strands consume without a local re-sort.
+    the sorted probe strands consume without a local re-sort.
 
     Returns ``(cols_recv, valid_recv, n_dropped)`` with recv length
     ``num_groups * capacity``.
@@ -103,12 +104,12 @@ def hier_exchange(keys: jax.Array, payload_rows: jax.Array,
                   sort_within_dest: bool = False):
     """Two-hop hierarchical exchange to each key's owning (host, chip).
 
-    ``capacity1`` bounds rows accepted per (sender, chip-column) in the ICI
-    hop; ``capacity2`` per (chip-column holder, dst host) in the DCN hop.
-    ``sort_within_dest``: the final (DCN) hop also key-orders rows within
+    ``capacity1`` bounds rows accepted per (sender, chip-column) in the
+    intra-host hop; ``capacity2`` per (chip-column holder, dst host) in the
+    network hop.  ``sort_within_dest``: the final (network) hop also key-orders rows within
     each destination, so the receive stream arrives as ``n_hosts``
     ascending blocks with all-ones dead tails -- consumable presorted by
-    the windowed strands (see shuffle.partition_exchange).
+    the sorted strands (see shuffle.partition_exchange).
     Returns ``(keys_r, rows_r, valid_r, overflow)``; overflow is psum'd over
     the whole mesh.
     """
@@ -122,12 +123,12 @@ def hier_exchange(keys: jax.Array, payload_rows: jax.Array,
 
     d = shard_of_key(keys, ns)          # global owner shard (64-bit finalizer
     #                                     for u64 keys, see shuffle.py)
-    chip_d = d % n_chips                # hop 1: chip column (intra-host, ICI)
-    host_d = d // n_chips               # hop 2: destination host (DCN)
+    chip_d = d % n_chips                # hop 1: chip column (intra-host)
+    host_d = d // n_chips               # hop 2: destination host (network)
 
     # keys travel as i32 bit patterns (view, not value conversion); u64 keys
     # ship as (hi, lo) u32 halves exactly like the flat partition_exchange --
-    # every shipped column stays 32-bit (int64 sorts are 2x on v5e)
+    # every shipped column stays 32-bit (64-bit sort keys cost more)
     if wide:
         key_cols = [(keys >> jnp.uint64(32)).astype(U32).view(I32),
                     keys.astype(jnp.uint32).view(I32)]
@@ -161,10 +162,10 @@ def dist_nested_join_2d(mesh: Mesh, num_buckets_per_shard: int,
     """Distributed 3D join over a (host, chip) mesh with hierarchical exchange.
 
     Same output contract as ``dist_join.dist_nested_join``; the only
-    difference is the two-hop routing.  ``*_capacity`` are per-hop, per-group
-    bounds (the DCN hop uses 2x the per-group bound: a chip column aggregates
-    a whole host's rows for each destination host).  ``key_domain`` enables
-    the windowed shard-local probe -- presorted over the key-ordered DCN
+    difference is the two-hop routing.  ``*_capacity`` are per-hop,
+    per-group bounds (the network hop uses 2x the per-group bound: a chip
+    column aggregates a whole host's rows for each destination host).  ``key_domain`` enables
+    the sorted shard-local probe -- presorted over the key-ordered network
     receive, with the global probe ids riding the strand's srow lookup --
     and ``n_keys`` (static per-shard distinct-key bound) the fused
     compacted shard build emitting global build ids, both exactly as in
@@ -201,14 +202,11 @@ def dist_nested_join_2d(mesh: Mesh, num_buckets_per_shard: int,
             probe_keys, grows(np_local), n_hosts, n_chips,
             probe_capacity, 2 * probe_capacity, sort_within_dest=fast)
         if fast:
-            from ..ops.sort import window_for_chunk
             from ..ops.strands_windowed import keydirect_nested_strand_sorted
-            # receive stream = per-source sorted blocks spanning the whole
-            # domain: size the window to the block spread (see dist_join)
+            # receive stream = per-source sorted blocks
             out_k = keydirect_nested_strand_sorted(
                 table, pkeys, out_capacity, mask=pvalid, presorted=True,
-                srow_values=prows,
-                lookup_w=window_for_chunk(2 * probe_capacity, key_domain))
+                srow_values=prows)
             prow_l, brow_l = out_k["probe_row"], out_k["build_row"]
             ovalid = prow_l >= 0
             total = out_k["c_unnest"]

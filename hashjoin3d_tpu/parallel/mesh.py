@@ -2,8 +2,9 @@
 
 One logical axis ``'x'`` carries the table partitioning (the operator/tensor
 parallel axis of the join: each chip owns one hash partition of the build
-table).  Host x chip factorization can be layered later by splitting the axis;
-all collectives here ride a single axis so they map onto ICI rings.
+table).  The cards of one host are joined all to all by NVLink, so a flat
+axis is the whole topology; ``hier.py`` adds a (host, chip) mesh for
+schedules that span hosts over the network.
 """
 
 from __future__ import annotations

@@ -8,11 +8,11 @@ mesh axis with ``lax.ppermute`` -- each shard probes the chunk currently
 visiting it, then forwards the chunk to its ring neighbor.  After ``n_shards``
 steps every chunk has visited every table shard exactly once.
 
-Why this schedule exists (TPU systems reasoning, not reference parity -- the
+Why this schedule exists (systems reasoning, not reference parity -- the
 reference is single-threaded):
 
-* traffic is nearest-neighbor only: each hop is a fixed-size ``ppermute`` over
-  one ICI link, never an all-to-all hotspot.  Under zipf-skewed probe keys an
+* traffic is nearest-neighbor only: each hop is a fixed-size ``ppermute`` to
+  one neighbor, never an all-to-all hotspot.  Under zipf-skewed probe keys an
   ``all_to_all`` exchange concentrates most probe rows onto the hot key's
   owner shard (capacity blowup, SURVEY.md section 7.4); in the ring schedule
   probe rows NEVER move based on their key, so per-shard receive volume is
@@ -70,7 +70,7 @@ def dist_ring_nested_join(mesh: Mesh, num_buckets_per_shard: int,
     tools/overlap_bench.py; PERF.md "Exchange/compute overlap").
     ``prefetch=False`` keeps the strictly sequential probe->hop order for
     comparison.  ``key_domain`` (static key bound, when known) switches each
-    visit's local probe to the windowed sorted strand, exactly as in
+    visit's local probe to the sorted keydirect strand, exactly as in
     ``dist_nested_join`` -- and the chunk is sorted ONCE at home before
     entering the ring, so all ``n_shards`` visits probe presorted with no
     per-hop re-sort (the sorted keys and their global row ids circulate
@@ -109,8 +109,7 @@ def dist_ring_nested_join(mesh: Mesh, num_buckets_per_shard: int,
             # vrow is base + iota, so the sorted global ids come from the
             # sort's row payload arithmetically (no gather).
             from ..ops.strands_windowed import _sort_probes
-            vkeys, sr, lookup_w, sort_seg = _sort_probes(vkeys,
-                                                         domain=key_domain)
+            vkeys, sr = _sort_probes(vkeys, domain=key_domain)
             vrow = lax.axis_index(axis).astype(jnp.int32) * np_local + sr
 
         out_p = jnp.full(out_capacity, -1, I32)
@@ -136,7 +135,6 @@ def dist_ring_nested_join(mesh: Mesh, num_buckets_per_shard: int,
                 # lookup so probe_row comes out global directly
                 out_k = keydirect_nested_strand_sorted(
                     table, vkeys, step_cap, presorted=True,
-                    lookup_w=lookup_w, segment=sort_seg,
                     srow_values=vrow)
                 prow_l, brow_l = out_k["probe_row"], out_k["build_row"]
                 ovalid = prow_l >= 0

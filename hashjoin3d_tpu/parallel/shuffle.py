@@ -1,13 +1,13 @@
 """Hash-partition shuffle: the distributed exchange under every parallel join.
 
 The reference has no communication layer at all (SURVEY.md section 5.8); the
-TPU-native design is: rows are routed to the shard owning their join key
+design here is: rows are routed to the shard owning their join key
 (``shard = murmur(murmur(key)) % n_shards`` with the width-matched finalizer
 -- double-hashed so shard routing is decorrelated from the in-table bucket
 assignment ``h % num_buckets``),
 locally radix-partitioned by destination with one stable sort, packed into a
 fixed-capacity ``[n_shards, capacity]`` send tensor, and exchanged with a
-single ``lax.all_to_all`` that XLA lowers onto the ICI ring.
+single ``lax.all_to_all`` (NCCL over NVLink between the cards of a host).
 
 Static shapes force a per-destination ``capacity``; rows beyond it are dropped
 and *counted* -- callers size capacity from the expected distribution (uniform:
@@ -55,10 +55,9 @@ def partition_exchange(axis_name: str, keys: jax.Array, payloads: dict,
         blocks of ``capacity``, each ascending with its dead slots --
         filled with the impossible key ``0xFF..F`` -- at the block tail.
         That is exactly the segment-sorted layout of
-        ``ops.sort.sort_segmented``, so a windowed probe strand can
+        ``ops.sort.sort_segmented``, so a sorted probe strand can
         consume the received keys with NO local re-sort
-        (``presorted=True``; safe_lookup patches the ~num_shards segment
-        boundary chunks).
+        (``presorted=True``).
 
     Returns ``(keys_recv, payloads_recv, valid_recv, overflow)`` where the recv
     arrays have length ``num_shards * capacity`` and ``overflow`` is the global
@@ -75,7 +74,7 @@ def partition_exchange(axis_name: str, keys: jax.Array, payloads: dict,
 
     # Local radix partition by destination: one stable multi-payload sort.
     # 64-bit keys travel as (hi, lo) u32 halves so every shipped column
-    # stays 32-bit (int64 sorts/scatters are 2-16x costlier on v5e).
+    # stays 32-bit (64-bit sort keys and scatters cost more).
     names = sorted(payloads)
     if wide:
         key_cols = ((keys >> jnp.uint64(32)).astype(U32),
@@ -90,8 +89,7 @@ def partition_exchange(axis_name: str, keys: jax.Array, payloads: dict,
     payload_s = sorted_ops[1 + len(key_cols):]
 
     # Within-destination rank from the sorted runs (scan-based run_start
-    # instead of a bincount histogram: bincount is a scatter-add, ~35x the
-    # sort's cost on v5e, and this runs once per exchange).
+    # instead of a bincount histogram, which would be a scatter-add).
     from ..ops.layout import run_boundaries
     _, _, run_start, _ = run_boundaries(dest_s.astype(U32), jnp.int32(n))
     within = jnp.arange(n, dtype=I32) - run_start

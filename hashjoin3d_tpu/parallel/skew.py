@@ -111,7 +111,7 @@ def dist_broadcast_join(mesh: Mesh, num_buckets: int, out_capacity: int,
     """Broadcast-build distributed join: build side replicated, probes local.
 
     ``step(build_keys, probe_keys)``: build keys sharded along ``axis`` are
-    all-gathered onto every shard (one ICI ring pass), each shard builds the
+    all-gathered onto every shard (one all-gather), each shard builds the
     full table and probes its local probe rows -- no probe exchange, so probe
     skew is irrelevant.  Counters psum'd; result pairs in global row ids.
     """

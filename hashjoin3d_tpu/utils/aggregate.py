@@ -4,7 +4,7 @@ Used by the hash-table statistics (``ht_statistics.hh``) exactly as in the
 reference: collision-chain-length aggregates over all / non-empty buckets.
 Besides the per-value ``step`` protocol there is a vectorized
 ``Aggregate.from_array`` that folds a whole numpy column at once (the
-TPU-native way to aggregate a bucket-occupancy histogram).
+vectorized way to aggregate a bucket-occupancy histogram).
 """
 
 from __future__ import annotations

@@ -11,6 +11,29 @@ template types).
 from __future__ import annotations
 
 import math
+import os
+from pathlib import Path
+
+#: Persistent compile cache used when ``JAX_COMPILATION_CACHE_DIR`` is unset:
+#: a fixed path inside the checkout (git-ignored), so every process of every
+#: run finds what an earlier one compiled.
+CHECKOUT_CACHE_DIR = Path(__file__).resolve().parents[2] / ".jax_cache"
+
+
+def compile_cache_dir(environ=os.environ) -> Path | None:
+    """The directory :func:`enable_compile_cache` points JAX at, or None
+    when ``JAX_COMPILATION_CACHE_DIR`` is set (JAX then reads it itself)."""
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return CHECKOUT_CACHE_DIR
+
+
+def enable_compile_cache() -> None:
+    """Turn on JAX's persistent compilation cache for an entry point."""
+    path = compile_cache_dir()
+    if path is not None:
+        import jax
+        jax.config.update("jax_compilation_cache_dir", str(path))
 
 
 def indent(level: int, width: int = 2) -> str:

@@ -1,6 +1,6 @@
 """Tracing, profiling and runtime-checking utilities.
 
-The TPU equivalents of the reference's observability toolkit (SURVEY.md 5.1/5.2):
+The JAX equivalents of the reference's observability toolkit (SURVEY.md 5.1/5.2):
 
 * reference gprof build mode (``makefile:49-52``)      -> ``trace()`` context
   manager emitting JAX profiler traces viewable in TensorBoard/Perfetto;

@@ -5,11 +5,9 @@ Measures the full distributed pipeline (exchange + build + probe + unnest) at
 1, 2, 4, ..., N devices with the per-device data volume held constant (weak
 scaling): efficiency = throughput(N) / (N * throughput(1)).
 
-On this environment only ONE real TPU chip is reachable, so real multi-chip
-efficiency cannot be measured here; run with JAX_PLATFORMS=cpu and
---devices 8 for a functional weak-scaling check on the virtual CPU mesh, or
-on a real pod slice for meaningful numbers (BASELINE.json targets >= 85%
-scaling efficiency).
+Run with ``--cpu --devices 8`` for a functional weak-scaling check on a
+virtual CPU mesh, or on the cards of one host for meaningful numbers
+(BASELINE.json targets >= 85% scaling efficiency).
 
 Prints one JSON line per mesh size.
 """
@@ -45,7 +43,6 @@ def main():
 
     from hashjoin3d_tpu.parallel import (
         dist_nested_join, make_mesh, shard_axis)
-    from hashjoin3d_tpu.utils.measure import fence
 
     n_dev = args.devices or jax.device_count()
     sizes = []
@@ -70,11 +67,11 @@ def main():
         bkd = jax.device_put(bk, sh)
         pkd = jax.device_put(pk, sh)
         out = step(bkd, pkd)
-        fence(out)  # compile warm-up
+        jax.block_until_ready(out)  # compile warm-up
         assert int(out["overflow"]) == 0, "undersized exchange capacity"
         t0 = time.perf_counter()
         for _ in range(args.reps):
-            fence(step(bkd, pkd))
+            jax.block_until_ready(step(bkd, pkd))
         dt = (time.perf_counter() - t0) / args.reps
         thr = n_p / dt
         if base is None:

@@ -96,44 +96,34 @@ def test_exp4_csv_matches_reference(golden, params, backend):
     _diff(*_load(GOLDEN / golden), *_load(buf.getvalue()), plan_col=10)
 
 
-def test_route_degradation_fails_the_run(monkeypatch):
-    """A seeded coverage regression must fail the harness non-zero, not just
-    print (VERDICT r4 weak #7: round 3 shipped a silent whole-stream gather
-    fallback that only a slower wall clock revealed).  Seeds route_worst=2
-    into the Csr probe strand's output and expects RouteDegradation."""
-    import hashjoin3d_tpu.models.exp1 as m
-    from hashjoin3d_tpu.models.exp1 import RouteDegradation, check_route
-
-    # unit level: the shared assert itself
-    check_route("x", {"route_worst": 0}, 0)          # pure windowed: passes
-    check_route("x", {}, 0)                          # host output: passes
-    check_route("x", {"route_worst": 2}, None)       # disabled: passes
-    with pytest.raises(RouteDegradation):
-        check_route("x", {"route_worst": 2, "route_nbad": 7}, 0)
-    with pytest.raises(RouteDegradation):
-        check_route("x", {"route_worst": 1}, 0)
-
-    # integration: the experiment run exits via the exception.  The Csr
-    # device plan at this scale routes through the dense-direct windowed
-    # strand (run() imports it from ops.strands_windowed at call time, so
-    # patch the source module).
-    import hashjoin3d_tpu.ops.strands_windowed as sw
-    real = sw.direct_probe_strand_sorted
-
-    def degraded(*args, **kwargs):
-        out = dict(real(*args, **kwargs))
-        out["route_worst"] = 2
-        out["route_nbad"] = 99
-        return out
-
-    monkeypatch.setattr(sw, "direct_probe_strand_sorted", degraded)
-    exp = Experiment1(log2_card_r=6, log2_card_s=8, skew=False, t=0, b=1,
-                      measure_file=io.StringIO(), min_runtime_s=0.0,
-                      min_repeat=1, trace=False, backend="device",
-                      plans=["Csr"])
-    exp.init()
-    with pytest.raises(RouteDegradation):
+def test_experiment_outputs_device_equal_host():
+    """``Experiment1.outputs`` keeps each plan's last probe output: the
+    device strands' (probe_row, build_row) multisets and CSV value columns
+    equal the native host engine's on the same generated data."""
+    from hashjoin3d_tpu.hostengine import native_engine
+    if native_engine() is None:
+        pytest.skip("native host engine unavailable (no g++)")
+    plans = ["Csr", "CsrUU", "Crs", "Nsr", "Nrs"]
+    runs = {}
+    for backend in ("device", "host"):
+        buf = io.StringIO()
+        exp = Experiment1(log2_card_r=6, log2_card_s=9, skew=False, t=1,
+                          b=1, measure_file=buf, min_runtime_s=0.0,
+                          min_repeat=1, trace=False, backend=backend,
+                          plans=plans)
+        exp.init()
         exp.run()
+        runs[backend] = (exp.outputs, buf.getvalue())
+    dev, host = runs["device"][0], runs["host"][0]
+    assert sorted(dev) == sorted(host) == sorted(plans)
+    for name in plans:
+        d = {k: np.asarray(v) for k, v in dev[name].items()}
+        v = d["probe_row"] >= 0
+        got = sorted(zip(d["probe_row"][v].tolist(),
+                         d["build_row"][v].tolist()))
+        want = sorted(zip(host[name][0].tolist(), host[name][1].tolist()))
+        assert got == want, name
+    _diff(*_load(runs["host"][1]), *_load(runs["device"][1]), plan_col=9)
 
 
 def test_exp1_result_set_vs_numpy_oracle():

@@ -1,4 +1,4 @@
-"""Native host engine: differential tests vs the python oracle and TPU engine.
+"""Native host engine: differential tests vs the python oracle and device engine.
 
 The C++ engine (``native/hj3engine.cpp``) must reproduce the reference's
 chain orders and counters exactly; the JAX engine already does (pinned by
@@ -96,7 +96,7 @@ def test_host_engine_u64_matches_python_oracle(how):
 
 
 def test_host_engine_vs_jax_engine_large():
-    """At sizes beyond the python oracle, host C++ and TPU-path JAX engines
+    """At sizes beyond the python oracle, host C++ and device-path JAX engines
     must agree on matches, comparison counts and the result multiset."""
     from hashjoin3d_tpu.ops import build_chaining, build_nested, probe_chaining
     from hashjoin3d_tpu.ops import materialize_chaining_join, probe_nested, unnest

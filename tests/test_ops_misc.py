@@ -216,74 +216,70 @@ def jnp_arr(x):
 
 
 def test_windowed_lookup_matches_gather():
-    """Pallas windowed lookup == XLA gather on sorted keys (interpret mode:
-    the Mosaic path is exercised on real hardware by tools/roofline.py)."""
+    """layout.safe_lookup == numpy gather on sorted keys, with out-of-range
+    keys (sorted to the tail) coming back 0 = miss marker, and on a sparse
+    stream whose chunks mix both ends of the table."""
     import jax.numpy as jnp
-    from hashjoin3d_tpu.ops.windowed import (
-        windowed_lookup, windowed_coverage_ok)
+    from hashjoin3d_tpu.ops.layout import safe_lookup
 
     rng = np.random.default_rng(3)
     T = 2048
     table = rng.integers(1, 2**32, T, dtype=np.uint32)
     keys = np.sort(rng.integers(0, T, 16384).astype(np.int32))
-    assert bool(windowed_coverage_ok(jnp.asarray(keys), T, W=1024))
-    out = windowed_lookup(jnp.asarray(table), jnp.asarray(keys), C=128,
-                          W=1024, interpret=True)
+    out = safe_lookup(jnp.asarray(table), jnp.asarray(keys))
+    assert out.dtype == jnp.uint32
     np.testing.assert_array_equal(np.asarray(out), table[keys])
 
-    # out-of-range keys (sorted to the tail) come back 0 = miss marker
     keys2 = np.concatenate([keys[:-256], np.full(256, T, np.int32)])
-    out2 = windowed_lookup(jnp.asarray(table), jnp.asarray(keys2), C=128,
-                           W=1024, interpret=True)
+    out2 = safe_lookup(jnp.asarray(table), jnp.asarray(keys2))
     assert (np.asarray(out2)[-256:] == 0).all()
     np.testing.assert_array_equal(np.asarray(out2)[:-256],
                                   table[keys2[:-256]])
 
-    # sparse keys the window cannot cover: the guard must say no
-    # (table spanning 4 windows, one CHUNK mixing both ends)
     T4 = 8192
+    table4 = rng.integers(1, 2**32, T4, dtype=np.uint32)
     sparse = np.sort(np.array([0, T4 - 1] * 100, np.int32))
-    assert not bool(windowed_coverage_ok(jnp.asarray(sparse), T4, W=1024))
+    np.testing.assert_array_equal(
+        np.asarray(safe_lookup(jnp.asarray(table4), jnp.asarray(sparse))),
+        table4[sparse])
 
 
 def test_windowed_lookup_double_buffered():
-    """db=True (pipelined window DMA, _windowed_kernel_db) is bit-equal to
-    the serial kernel, including misses and multi-window walks."""
+    """Miss holes in a sorted stream over a table of values >= 2^31 (u32
+    values must come back unchanged), at a length that is no power of
+    two, from u32 keys (>= 2^31 reads as a miss)."""
     import jax.numpy as jnp
-    from hashjoin3d_tpu.ops.windowed import (
-        windowed_lookup, windowed_coverage_ok)
+    from hashjoin3d_tpu.ops.layout import safe_lookup
 
     rng = np.random.default_rng(7)
     T = 8192
-    table = rng.integers(1, 2**32, T, dtype=np.uint32)
-    keys = np.sort(rng.integers(0, T, 16384).astype(np.int32))
-    keys[rng.random(16384) < 0.2] = -1          # miss holes
-    assert bool(windowed_coverage_ok(jnp.asarray(keys), T, C=128, W=1024))
-    base = np.asarray(windowed_lookup(jnp.asarray(table), jnp.asarray(keys),
-                                      C=128, W=1024, interpret=True))
-    db = np.asarray(windowed_lookup(jnp.asarray(table), jnp.asarray(keys),
-                                    C=128, W=1024, interpret=True, db=True))
-    np.testing.assert_array_equal(db, base)
+    table = rng.integers(1 << 31, 2**32, T, dtype=np.uint32)
+    keys = np.sort(rng.integers(0, T, 16384 + 77).astype(np.int32))
+    keys[rng.random(keys.size) < 0.2] = -1          # miss holes
+    want = np.where(keys >= 0, table[np.maximum(keys, 0)], 0)
+    out = np.asarray(safe_lookup(jnp.asarray(table), jnp.asarray(keys)))
+    np.testing.assert_array_equal(out, want)
+    out_u = np.asarray(safe_lookup(jnp.asarray(table),
+                                   jnp.asarray(keys.view(np.uint32))))
+    np.testing.assert_array_equal(out_u, want)
 
 
 def test_windowed_lookup_miss_holes():
     """Interspersed -1 miss markers (key_direct images) yield 0 without
-    disturbing neighbors' windows."""
+    disturbing their neighbours; i32 values keep their dtype."""
     import jax.numpy as jnp
-    from hashjoin3d_tpu.ops.windowed import (
-        windowed_lookup, windowed_coverage_ok)
+    from hashjoin3d_tpu.ops.layout import safe_lookup
 
     rng = np.random.default_rng(9)
     T = 4096
-    table = rng.integers(1, 2**32, T, dtype=np.uint32)
+    table = rng.integers(-2**31, 2**31, T, dtype=np.int64).astype(np.int32)
     keys = np.sort(rng.integers(0, T, 16384).astype(np.int32))
     holes = rng.random(16384) < 0.3
     keys[holes] = -1
-    assert bool(windowed_coverage_ok(jnp.asarray(keys), T, C=128, W=1024))
-    out = np.asarray(windowed_lookup(jnp.asarray(table), jnp.asarray(keys),
-                                     C=128, W=1024, interpret=True))
+    out = safe_lookup(jnp.asarray(table), jnp.asarray(keys))
+    assert out.dtype == jnp.int32
     want = np.where(holes, 0, table[np.maximum(keys, 0)])
-    np.testing.assert_array_equal(out, want)
+    np.testing.assert_array_equal(np.asarray(out), want)
 
 
 def test_stream_probe_matches_whole_column():

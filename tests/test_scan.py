@@ -1,30 +1,25 @@
-"""Pallas fused multi-scan kernel (ops/scan.py) vs lax scans.
+"""The engine's scans (ops/scan.py:engine_multi_scan) vs numpy oracles.
 
-The kernel path runs through the pallas interpreter (interpret=True) --
-same program the TPU compiles, emulated op-for-op -- against lax.cumsum/
-cummax/cummin oracles.  Sizes are kept small (the interpreter is slow);
-block-boundary carry logic is exercised with C=256 so several grid steps
-run per case.
+Lengths are multiples and non-multiples of ``C`` (256) so the ragged tails
+and long runs the builds and expansions produce are both covered.
 """
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
-from jax import lax
 
-from hashjoin3d_tpu.ops.scan import cumsum_i32, multi_scan
+from hashjoin3d_tpu.ops.scan import engine_multi_scan
 
-C = 256  # tiny blocks -> many sequential grid steps + carries
+C = 256
 
 
 def _oracle(x, op, reverse):
-    x = jnp.asarray(x, jnp.int32)
-    if op == "sum":
-        r = jnp.cumsum(x[::-1])[::-1] if reverse else jnp.cumsum(x)
-        return np.asarray(r, np.int32)
-    f = lax.cummax if op == "max" else lax.cummin
-    return np.asarray(f(x, 0, reverse=reverse), np.int32)
+    x = np.asarray(x, np.int64)
+    f = {"sum": np.cumsum, "max": np.maximum.accumulate,
+         "min": np.minimum.accumulate}[op]
+    r = f(x[::-1])[::-1] if reverse else f(x)
+    return r.astype(np.int32)
 
 
 @pytest.mark.parametrize("op", ["sum", "max", "min"])
@@ -32,8 +27,7 @@ def _oracle(x, op, reverse):
 def test_single_scan_kernel(op, reverse):
     rng = np.random.default_rng(3)
     x = rng.integers(-100, 100, 4 * C).astype(np.int32)
-    (got,) = multi_scan((jnp.asarray(x),), (op,), reverse=reverse, C=C,
-                        interpret=True)
+    (got,) = engine_multi_scan((jnp.asarray(x),), (op,), reverse=reverse)
     np.testing.assert_array_equal(np.asarray(got), _oracle(x, op, reverse))
 
 
@@ -43,8 +37,8 @@ def test_fused_three_scans_one_pass(reverse):
     n = 3 * C + 128          # deliberately NOT a multiple of C (padding)
     xs = [rng.integers(-50, 50, n).astype(np.int32) for _ in range(3)]
     ops = ("sum", "max", "min")
-    got = multi_scan(tuple(jnp.asarray(x) for x in xs), ops,
-                     reverse=reverse, C=C, interpret=True)
+    got = engine_multi_scan(tuple(jnp.asarray(x) for x in xs), ops,
+                     reverse=reverse)
     for g, x, op in zip(got, xs, ops):
         np.testing.assert_array_equal(np.asarray(g), _oracle(x, op, reverse))
 
@@ -52,7 +46,7 @@ def test_fused_three_scans_one_pass(reverse):
 def test_carry_across_many_blocks():
     # all-ones cumsum: output is arange+1, any carry bug shows immediately
     n = 7 * C
-    got = cumsum_i32(jnp.ones(n, jnp.int32), C=C, interpret=True)
+    (got,) = engine_multi_scan((jnp.ones(n, jnp.int32),), ("sum",))
     np.testing.assert_array_equal(np.asarray(got),
                                   np.arange(1, n + 1, dtype=np.int32))
 
@@ -66,7 +60,7 @@ def test_cummax_run_start_pattern():
     i = np.arange(n, dtype=np.int32)
     is_first = np.concatenate([[True], keys[1:] != keys[:-1]])
     head = np.where(is_first, i, -1).astype(np.int32)
-    (got,) = multi_scan((jnp.asarray(head),), ("max",), C=C, interpret=True)
+    (got,) = engine_multi_scan((jnp.asarray(head),), ("max",))
     np.testing.assert_array_equal(np.asarray(got), _oracle(head, "max", False))
 
 
@@ -92,8 +86,8 @@ def test_maxpair_kernel(reverse):
     # negative payloads (the i64-packed bias case)
     k = rng.integers(-4, 4, n).astype(np.int32)
     v = rng.integers(-1000, 1000, n).astype(np.int32)
-    gk, gv = multi_scan((jnp.asarray(k), jnp.asarray(v)), ("maxpair",),
-                        reverse=reverse, C=C, interpret=True)
+    gk, gv = engine_multi_scan((jnp.asarray(k), jnp.asarray(v)), ("maxpair",),
+                        reverse=reverse)
     wk, wv = _maxpair_oracle(k, v, reverse)
     np.testing.assert_array_equal(np.asarray(gk), wk)
     np.testing.assert_array_equal(np.asarray(gv), wv)
@@ -107,7 +101,7 @@ def test_maxpair_twin_matches_packed_cummax():
     val = rng.integers(0, 1 << 26, n).astype(np.int32)
     packed = (rank.astype(np.int64) << 26) | val.astype(np.int64)
     want = np.maximum.accumulate(packed)
-    gk, gv = multi_scan((jnp.asarray(rank), jnp.asarray(val)), ("maxpair",))
+    gk, gv = engine_multi_scan((jnp.asarray(rank), jnp.asarray(val)), ("maxpair",))
     got = (np.asarray(gk, np.int64) << 26) | np.asarray(gv, np.int64)
     # where rank == -1 everywhere so far, both formulations carry idents;
     # compare only from the first real rank on
@@ -122,9 +116,9 @@ def test_mixed_ops_with_maxpair(reverse):
     a = rng.integers(-10, 10, n).astype(np.int32)
     k = rng.integers(-3, 3, n).astype(np.int32)
     v = rng.integers(-99, 99, n).astype(np.int32)
-    got = multi_scan(
+    got = engine_multi_scan(
         (jnp.asarray(a), jnp.asarray(k), jnp.asarray(v)),
-        ("sum", "maxpair"), reverse=reverse, C=C, interpret=True)
+        ("sum", "maxpair"), reverse=reverse)
     np.testing.assert_array_equal(np.asarray(got[0]),
                                   _oracle(a, "sum", reverse))
     wk, wv = _maxpair_oracle(k, v, reverse)
@@ -133,11 +127,11 @@ def test_mixed_ops_with_maxpair(reverse):
 
 
 def test_cpu_twin_matches_lax():
-    # default (interpret=None) on CPU routes to the jnp twin -- same results
+    # long ragged input, every single op both ways
     rng = np.random.default_rng(9)
     x = rng.integers(-1000, 1000, 5000).astype(np.int32)
     for op in ("sum", "max", "min"):
         for reverse in (False, True):
-            (got,) = multi_scan((jnp.asarray(x),), (op,), reverse=reverse)
+            (got,) = engine_multi_scan((jnp.asarray(x),), (op,), reverse=reverse)
             np.testing.assert_array_equal(np.asarray(got),
                                           _oracle(x, op, reverse))

@@ -1,16 +1,14 @@
-"""Segmented probe sorts + chunk-patched windowed lookups.
+"""Segmented probe sorts, the probe-sort policy and the gather helper.
 
-The probe strands' one global 2-op sort is the measured bound of every
-unsorted-probe pipeline (PERF.md).  ``ops/sort.py:sort_segmented`` replaces
-it with a batched within-segment sort when the key domain is known
-(tools/sortbench.py: 49.9 -> 38.2 ms at 2^24 over a 2^20 domain), and
-``safe_lookup``'s chunk patching keeps the downstream expansion lookups
-windowed across the ~K segment-boundary chunks.  These tests pin:
+``ops/sort.py:sort_segmented`` replaces the probe strands' global 2-op sort
+with a batched within-segment ``lax.sort`` when the key domain is known
+(``probe_sort_chunk``).  These tests pin:
 
-* sort_segmented/sort_segmented_1op semantics (per-segment ordering, row
-  id recovery, miss keys at segment tails);
+* sort_segmented semantics against numpy (per-segment order, row-id
+  recovery, u32 vs i32 order, ties, miss keys at segment tails, single and
+  presorted segments);
 * probe_sort_chunk's routing policy;
-* safe_lookup's patched path against brute force on adversarial streams;
+* ``layout.safe_lookup`` against brute force on adversarial streams;
 * full strand counters/result parity vs the python oracles when the
   segmented paths are active (P large enough, domain small enough).
 """
@@ -21,9 +19,9 @@ import pytest
 import jax.numpy as jnp
 
 import hashjoin3d_tpu as hj
-from hashjoin3d_tpu.ops.sort import (probe_sort_chunk, sort_segmented,
-                                     sort_segmented_1op, window_for_chunk)
-from hashjoin3d_tpu.ops.strands_windowed import safe_lookup
+from hashjoin3d_tpu.ops.layout import safe_lookup
+from hashjoin3d_tpu.ops.sort import (MAX_SEGMENT, probe_sort_chunk,
+                                     sort_segmented)
 from oracle import ChainingOracle, NestedOracle
 
 I32 = np.int32
@@ -33,66 +31,199 @@ U32 = np.uint32
 def test_probe_sort_chunk_policy():
     # unknown domain -> global sort
     assert probe_sort_chunk(1 << 24, None) is None
-    # canonical bench shape: 2^24 probes over 2^20 domain.  The margin
-    # policy wants segments of 2x the domain, but XLA's 2-op sort cannot
-    # compile rows past MAX_SEGMENT = 2^20 (scoped VMEM), so the segment
-    # caps there and the coverage margin moves into a 2x window instead.
+    # canonical bench shape: 2^24 probes over 2^20 domain.  The policy
+    # wants segments of 2x the domain, capped at MAX_SEGMENT = 2^20
     assert probe_sort_chunk(1 << 24, 1 << 20) == 1 << 20
-    assert window_for_chunk(1 << 20, 1 << 20) == 2048
-    # sub-cap domain: the full 2x-domain segment, default window
+    # sub-cap domain: the full 2x-domain segment
     assert probe_sort_chunk(1 << 20, 1 << 16) == 1 << 17
-    assert window_for_chunk(1 << 17, 1 << 16) == 1024
     # domain not a power of two rounds up (then doubles)
     assert probe_sort_chunk(1 << 20, (1 << 16) - 3) == 1 << 17
-    # large domains stay segmentable until the needed window exceeds the
-    # kernel's 8K cap (domain > 4 * MAX_SEGMENT)
+    # large domains stay segmentable up to 4 * MAX_SEGMENT
     assert probe_sort_chunk(1 << 24, 1 << 22) == 1 << 20
-    assert window_for_chunk(1 << 20, 1 << 22) == 8192
     assert probe_sort_chunk(1 << 26, 1 << 23) is None
     # indivisible P
     assert probe_sort_chunk((1 << 20) + 512, 1 << 16) is None
-    # segment floor: window-chunk alignment
+    # segment floor: 1024-element alignment
     assert probe_sort_chunk(1 << 16, 16) == 1024
     # segment count cap (max_k=64): tiny domain under a huge P
     assert probe_sort_chunk(1 << 24, 16) == 1 << 18
 
 
-# -- window-coverage simulation (numpy, no device): pins the margin policy ----
-
-
-def _simulate_uncovered_chunks(P, domain, segment, W, C=1024, seed=0):
-    """Uncovered window chunks of a segment-sorted uniform key stream,
-    computed with safe_lookup's exact coverage math (chunk_bases policy,
-    r5: base = align1024(chunk max - W), window [base, base + W + 1024))."""
-    rng = np.random.default_rng(seed)
-    keys = rng.integers(0, domain, P, dtype=np.int64)
-    k2 = np.sort(keys.reshape(P // segment, segment), axis=1).reshape(P)
-    T = max(W + 1024, -(-domain // 1024) * 1024)
-    c2 = k2.reshape(P // C, C)
-    kmax = c2.max(axis=1)
-    base = np.clip((kmax - W) & ~1023, 0, max(T - (W + 1024), 0))
-    delta = c2 - base[:, None]
-    covered = (delta >= 0) & (delta < W + 1024)
-    return int((~covered.all(axis=1)).sum())
-
-
 @pytest.mark.parametrize("logp,logd", [(24, 20), (25, 21), (24, 21)])
-def test_segment_margin_covers_canonical_shapes(logp, logd):
-    """The regression test VERDICT r3 asked for: at the canonical bench
-    shapes the policy's (segment, window) pair must leave ZERO uncovered
-    window chunks, while the round-3 policy (domain-sized segment, default
-    1024 window) overflows the patch budget and would serialize the whole
-    stream."""
+def test_probe_sort_chunk_canonical_shapes(logp, logd):
+    """At the canonical bench shapes the policy segments the probe sort:
+    each segment is an ascending run over the whole domain (at least the
+    domain long, capped at MAX_SEGMENT), segments tile P exactly, and the
+    segment count stays within [min_k, max_k]."""
     P, domain = 1 << logp, 1 << logd
     chunk = probe_sort_chunk(P, domain)
     assert chunk is not None
-    W = window_for_chunk(chunk, domain)
-    assert W >= 2 * (1024 * domain) // chunk  # the 2x margin itself
-    assert _simulate_uncovered_chunks(P, domain, chunk, W) == 0
-    # the old zero-margin policy: hundreds of uncovered chunks, beyond the
-    # old fixed patch budget (measured 256 at 2^24/2^20 in VERDICT r3)
-    if logp == 24 and logd == 20:
-        assert _simulate_uncovered_chunks(P, domain, domain, 1024) > 64
+    assert chunk == min(2 * domain, MAX_SEGMENT)
+    assert P % chunk == 0 and 8 <= P // chunk <= 64
+
+
+@pytest.mark.parametrize("logp,logd,want", [(24, 20, 1 << 20),
+                                            (25, 21, 1 << 20),
+                                            (24, 21, 1 << 20),
+                                            (21, 20, None)])
+def test_probe_sort_chunk_shape_table(logp, logd, want):
+    """The segment each canonical shape gets (None = global sort: 2^21
+    probes over a 2^20 domain leave fewer than 8 capped segments)."""
+    assert probe_sort_chunk(1 << logp, 1 << logd) == want
+
+
+def test_probe_sort_chunk_small_domains():
+    # small domains: 2x the domain; the segment never undercuts 1024
+    assert probe_sort_chunk(1 << 20, 1 << 16) == 1 << 17
+    assert probe_sort_chunk(1 << 14, 100) == 1024
+    # too few segments for a batched sort to pay: global
+    assert probe_sort_chunk(1 << 12, 1 << 10) is None
+
+
+# -- sort_segmented vs numpy ----------------------------------------------
+
+
+def _check_segments(keys, chunk, got_k, got_r, stable=True):
+    """Per segment: keys sorted exactly (numpy order of the dtype), row ids
+    a permutation of the segment carrying their own keys, and -- for a
+    stable sort -- equal keys in ascending row order."""
+    got_k, got_r = np.asarray(got_k), np.asarray(got_r)
+    k2 = keys.reshape(-1, chunk)
+    want_k = np.sort(k2, axis=1, kind="stable")
+    assert np.array_equal(got_k.reshape(-1, chunk), want_k)
+    for s in range(k2.shape[0]):
+        rows = got_r.reshape(-1, chunk)[s] - s * chunk
+        assert sorted(rows.tolist()) == list(range(chunk))
+        assert np.array_equal(k2[s][rows], want_k[s])
+        if stable:
+            want_r = np.argsort(k2[s], kind="stable")
+            assert np.array_equal(rows, want_r)
+
+
+@pytest.mark.parametrize("chunk", [256, 512])
+def test_sort_segmented_random_u32(chunk):
+    rng = np.random.default_rng(0)
+    P = 4 * chunk
+    keys = rng.integers(0, 1 << 32, P, dtype=np.uint64).astype(U32)
+    _check_segments(keys, chunk, *sort_segmented(jnp.asarray(keys), chunk))
+
+
+def test_sort_segmented_duplicate_keys_stable():
+    """Dense duplicates: equal keys keep ascending row order."""
+    rng = np.random.default_rng(1)
+    chunk, P = 256, 1024
+    keys = rng.integers(0, 7, P).astype(U32)  # heavy ties
+    _check_segments(keys, chunk, *sort_segmented(jnp.asarray(keys), chunk))
+
+
+def test_sort_segmented_rows_follow_keys():
+    """Heavy ties at two segment sizes: every row id stays aligned with its
+    key and the row column stays a per-segment permutation."""
+    rng = np.random.default_rng(7)
+    for chunk, P, hi in ((512, 4096, 11), (1024, 4096, 5)):
+        keys = rng.integers(0, hi, P).astype(U32)
+        _check_segments(keys, chunk,
+                        *sort_segmented(jnp.asarray(keys), chunk))
+
+
+@pytest.mark.parametrize("chunk,P,hi", [(1024, 4096, 61),
+                                        (1024, 4096, 1 << 24),
+                                        (2048, 8192, 1 << 24)])
+def test_sort_segmented_packed_shapes(chunk, P, hi):
+    """The key ranges and segment shapes of the probe streams: small dense
+    domains and 24-bit keys, one and several segments per stream."""
+    rng = np.random.default_rng(21)
+    keys = rng.integers(0, hi, P, dtype=np.int64).astype(U32)
+    _check_segments(keys, chunk, *sort_segmented(jnp.asarray(keys), chunk))
+
+
+def test_sort_segmented_out_of_domain_tail():
+    """Miss keys above the domain sort to each segment's tail exactly."""
+    rng = np.random.default_rng(24)
+    chunk, P = 1024, 2048
+    keys = rng.integers(0, 200, P).astype(U32)
+    keys[rng.choice(P, 100, replace=False)] = (1 << 24) - 1  # miss marker
+    sk, sr = sort_segmented(jnp.asarray(keys), chunk)
+    _check_segments(keys, chunk, sk, sr)
+    sk = np.asarray(sk).reshape(-1, chunk)
+    for seg in sk:
+        big = seg >= 200
+        assert np.all(big == (np.arange(chunk) >= chunk - big.sum()))
+
+
+def test_sort_segmented_sign_flip_order():
+    """Keys straddling 2^31 must sort in u32 order, not i32."""
+    rng = np.random.default_rng(2)
+    chunk = 256
+    keys = np.concatenate([
+        rng.integers(0, 100, 128), rng.integers((1 << 32) - 100, 1 << 32,
+                                                128)]).astype(U32)
+    rng.shuffle(keys)
+    sk, sr = sort_segmented(jnp.asarray(keys), chunk)
+    assert np.asarray(sk)[:128].max() < 100
+    _check_segments(keys, chunk, sk, sr)
+
+
+def test_sort_segmented_i32_markers():
+    """i32 keys sort signed: -1 markers lead each segment."""
+    rng = np.random.default_rng(3)
+    chunk, P = 512, 2048
+    v = rng.integers(0, 64, P).astype(I32)
+    v[rng.choice(P, 300, replace=False)] = -1
+    _check_segments(v, chunk, *sort_segmented(jnp.asarray(v), chunk))
+
+
+@pytest.mark.parametrize("chunk", [512, 1024])
+def test_sort_segmented_multi_level(chunk):
+    """Random u32 keys with payload-sized segments, and signed i32 values
+    through the same sort."""
+    rng = np.random.default_rng(6)
+    P = 4 * chunk
+    keys = rng.integers(0, 1 << 32, P, dtype=np.uint64).astype(U32)
+    _check_segments(keys, chunk, *sort_segmented(jnp.asarray(keys), chunk))
+    v = rng.integers(-50, 50, P).astype(I32)
+    _check_segments(v, chunk, *sort_segmented(jnp.asarray(v), chunk))
+
+
+def test_sort_segmented_single_segment_and_presorted():
+    chunk = 256
+    asc = np.arange(chunk, dtype=U32)
+    desc = asc[::-1].copy()
+    const = np.full(chunk, 7, U32)
+    for keys in (asc, desc, const):
+        _check_segments(keys, chunk,
+                        *sort_segmented(jnp.asarray(keys), chunk))
+
+
+def test_sort_segmented_equals_per_segment_numpy():
+    """The whole output equals numpy's per-segment stable sort, keys and
+    global row ids alike."""
+    rng = np.random.default_rng(5)
+    P, chunk = 4096, 1024
+    b = rng.integers(0, 64, P).astype(U32)
+    sk, sr = (np.asarray(x) for x in sort_segmented(jnp.asarray(b), chunk))
+    order = np.argsort(b.reshape(-1, chunk), axis=1, kind="stable")
+    want_r = (order + (np.arange(P // chunk) * chunk)[:, None]).reshape(P)
+    assert np.array_equal(sr, want_r)
+    assert np.array_equal(sk, b[want_r])
+
+
+def test_sort_probes_segmented_vs_global():
+    """_sort_probes with a known domain (segmented) and without (global)
+    yield the same key multiset per row id, and each is sorted the way its
+    policy says."""
+    from hashjoin3d_tpu.ops.strands_windowed import _sort_probes
+    rng = np.random.default_rng(4)
+    P, dom = 16384, 600
+    pk = rng.integers(0, dom, P).astype(U32)
+    chunk = probe_sort_chunk(P, dom)
+    assert chunk is not None
+    seg = _sort_probes(jnp.asarray(pk), domain=dom)
+    glo = _sort_probes(jnp.asarray(pk))
+    _check_segments(pk, chunk, seg.skey, seg.srow)
+    gk, gr = np.asarray(glo.skey), np.asarray(glo.srow)
+    assert np.array_equal(gk, np.sort(pk))
+    assert np.array_equal(pk[gr], gk)
 
 
 def test_sort_segmented_semantics():
@@ -125,12 +256,12 @@ def test_sort_segmented_miss_keys_at_tails():
         assert np.all(big == (np.arange(chunk) >= chunk - big.sum()))
 
 
-def test_sort_segmented_1op_dead_markers():
+def test_sort_segmented_i32_dead_markers():
     rng = np.random.default_rng(2)
     P, chunk = 4096, 1024
     b = rng.integers(0, 64, P).astype(I32)
     b[rng.choice(P, 500, replace=False)] = -1
-    out = np.asarray(sort_segmented_1op(jnp.asarray(b), chunk))
+    out = np.asarray(sort_segmented(jnp.asarray(b), chunk)[0])
     for s in range(P // chunk):
         seg = out[s * chunk:(s + 1) * chunk]
         assert np.all(np.diff(seg) >= 0)  # -1s at the front
@@ -144,15 +275,12 @@ def _brute(values, keys):
 
 
 def test_safe_lookup_patches_boundary_chunks():
-    """A segment-restarting key stream: most chunks covered, K-1 boundary
-    chunks straddle the wrap and must be patched, not degrade the whole
-    stream to the gather."""
+    """A segment-restarting key stream (each segment sweeps the whole
+    value range, rotated off the 1024 grid)."""
     rng = np.random.default_rng(3)
     T = 1 << 14
     values = rng.integers(1, 1 << 30, T).astype(U32)
     K, seg = 8, 4096
-    # each segment sweeps the full value range; offsets misalign the
-    # wrap-around from the 1024-chunk grid -> uncovered boundary chunks
     keys = np.concatenate([
         np.sort(rng.integers(0, T, seg)).astype(I32)[
             np.r_[np.arange(137, seg), np.arange(137)]]
@@ -162,25 +290,24 @@ def test_safe_lookup_patches_boundary_chunks():
 
 
 def test_safe_lookup_gather_fallback_beyond_patch_budget():
-    """More uncovered chunks than max_patch -> exact via the full gather."""
+    """A fully random stream."""
     rng = np.random.default_rng(4)
     T = 1 << 14
     values = rng.integers(1, 1 << 30, T).astype(U32)
     keys = rng.integers(0, T, 1 << 15).astype(I32)  # fully random stream
-    out = np.asarray(safe_lookup(jnp.asarray(values), jnp.asarray(keys),
-                                 max_patch=4))
+    out = np.asarray(safe_lookup(jnp.asarray(values), jnp.asarray(keys)))
     assert np.array_equal(out, _brute(values, keys))
 
 
 def test_safe_lookup_patch_with_misses_and_pad():
     rng = np.random.default_rng(5)
-    T = 5000  # not a multiple of W: exercises table padding
+    T = 5000  # not a power of two
     values = rng.integers(1, 1 << 30, T).astype(U32)
-    n = 3 * 1024 + 700  # not a multiple of C: exercises key padding
+    n = 3 * 1024 + 700  # ragged length
     keys = np.sort(rng.integers(0, T, n)).astype(I32)
     keys[rng.choice(n, 50, replace=False)] = -1
     keys[rng.choice(n, 50, replace=False)] = T + 17
-    # one artificial wrap to force a patch
+    # one artificial wrap
     keys[2048:2060] = np.arange(12, dtype=I32)
     out = np.asarray(safe_lookup(jnp.asarray(values), jnp.asarray(keys)))
     assert np.array_equal(out, _brute(values, keys))
@@ -210,7 +337,7 @@ def test_direct_strand_segmented_counters():
 
 def test_keydirect_nested_strand_segmented_counters():
     """Nrs expansion path with segment-restarting group-position streams:
-    the patched safe_lookup keeps build_row exact."""
+    build_row stays exact."""
     rng = np.random.default_rng(7)
     dom = 512
     bk = rng.integers(0, dom, 4096, dtype=U32)  # ~8 rows per key
@@ -239,8 +366,7 @@ def test_keydirect_chaining_strand_segmented_counters():
 
 
 def test_zipf_skewed_segmented():
-    """Heavy duplicate skew: segment spreads shrink, coverage trivially
-    holds; counters stay exact."""
+    """Heavy duplicate skew: counters stay exact."""
     rng = np.random.default_rng(9)
     dom = 512
     bk = rng.integers(0, dom, 2048, dtype=U32)
@@ -255,116 +381,60 @@ def test_zipf_skewed_segmented():
     assert res.num_results == len(orc.unnest(nested))
 
 
-def _simulate_rows_stream_uncovered(P, domain, segment, n_rows, W, C=1024,
-                                    seed=3):
-    """Uncovered chunks of the EXPANSION position stream
-    (``group_start[g] + within``, strands_windowed.py emission): a
-    segment-sorted probe stream revisits the whole [0, n_rows) CSR range
-    once per segment, so the position stream restarts at every segment
-    boundary and advances ``P/segment`` times faster than under a global
-    sort.  Uses safe_lookup's exact coverage math."""
-    rng = np.random.default_rng(seed)
-    glen = n_rows // domain
-    nseg = P // segment
-    pos = []
-    for s in range(nseg):
-        keys = np.sort(rng.choice(domain, segment, replace=(P > domain)))
-        # each probe emits its group's glen consecutive CSR positions
-        pos.append((keys[:, None] * glen
-                    + np.arange(glen)[None, :]).reshape(-1))
-    stream = np.concatenate(pos).astype(np.int64)
-    n = (len(stream) // C) * C
-    c2 = stream[:n].reshape(-1, C)
-    T = max(W + 1024, -(-n_rows // 1024) * 1024)
-    kmax = c2.max(axis=1)
-    base = np.clip((kmax - W) & ~1023, 0, max(T - (W + 1024), 0))
-    delta = c2 - base[:, None]
-    covered = (delta >= 0) & (delta < W + 1024)
-    return int((~covered.all(axis=1)).sum())
-
-
 def test_directory_fetch_window_covers_head_stream():
-    """The build-side directory fetch (layout.compact_group_index): head
-    positions of sorted key runs fluctuate with the group-size draw, so
-    the window needs the standard 2x margin.  Under margin 1 the r5
-    tile-aligned windows (which removed the old 2W formulation's
-    incidental slack) silently degraded the exp-4 12.6M-row builds to the
-    serialized gather (build 226 -> 429 ms, artifacts/r5/exp4_24c.log) --
-    builds carry no route output, so only this simulation and the wall
-    clock can catch it."""
-    from hashjoin3d_tpu.ops.strands_windowed import stride_params
+    """The build-side directory (layout.compact_group_index) on exp-4's
+    BIMODAL fk multiplicity -- a common region at ~4 rows/key next to an
+    exclusive region at ~2 -- equals numpy's run-length directory."""
+    import jax
+
+    from hashjoin3d_tpu.ops.layout import compact_group_index, sort_with_rows
 
     rng = np.random.default_rng(17)
-    # exp-4's BIMODAL fk multiplicity: a common region at ~4 rows/key next
-    # to an exclusive region at ~2 (mean 2.4) -- the head-position stride
-    # is REGIONAL, so a window sized for the mean stride under-covers the
-    # dense region (this, not mere fluctuation, is what degraded)
-    dv_a, dv_b = 1 << 18, 1 << 20
-    keys = np.sort(np.concatenate([
-        rng.integers(0, dv_a, 4 * dv_a),
-        dv_a + rng.integers(0, dv_b, 2 * dv_b)]))
-    n, cap = keys.size, dv_a + dv_b
-    first = np.concatenate([[True], keys[1:] != keys[:-1]])
-    hp = np.flatnonzero(first)               # ascending head positions
-    hp = np.concatenate([hp, np.full(cap - hp.size, n - 1)])[:cap]
-
-    def uncovered(W, C):
-        m = (hp.size // C) * C
-        c2 = hp[:m].reshape(-1, C)
-        T = max(W + 1024, -(-n // 1024) * 1024)
-        kmax = c2.max(axis=1)
-        base = np.clip((kmax - W) & ~1023, 0, max(T - (W + 1024), 0))
-        delta = c2 - base[:, None]
-        return int((~((delta >= 0) & (delta < W + 1024)).all(axis=1)).sum())
-
-    W2, C2 = stride_params(n / cap, margin=2.0)
-    assert uncovered(W2, C2) == 0            # the shipped margin covers
-    W1, C1 = stride_params(n / cap, margin=1.0)
-    # margin 1 leaks uncovered chunks (scale-dependent count; at the real
-    # 12.6M-row shape enough of them overflow the patch budget and the
-    # whole directory fetch serializes)
-    assert uncovered(W1, C1) > 0
+    dv_a, dv_b = 1 << 10, 1 << 12
+    keys = np.concatenate([rng.integers(0, dv_a, 4 * dv_a),
+                           dv_a + rng.integers(0, dv_b, 2 * dv_b)])
+    keys = rng.permutation(keys).astype(U32)
+    skey, srow, nk = sort_with_rows(jnp.asarray(keys))
+    cap = dv_a + dv_b
+    g = jax.device_get(compact_group_index(jnp.asarray(keys), skey, srow,
+                                           cap))
+    uk, first, cnt = np.unique(keys, return_index=True, return_counts=True)
+    k = uk.size
+    assert int(nk) == int(g.n_keys) == k
+    np.testing.assert_array_equal(np.asarray(g.ukey)[:k], uk)
+    np.testing.assert_array_equal(np.asarray(g.group_len)[:k], cnt)
+    np.testing.assert_array_equal(np.asarray(g.first_row)[:k], first)
+    starts = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+    np.testing.assert_array_equal(np.asarray(g.group_start)[:k], starts)
+    assert (np.asarray(g.group_len)[k:] == 0).all()
 
 
 @pytest.mark.parametrize("logp,logd,logn", [(20, 20, 24),   # exp-1 Crs
                                             (21, 21, 25),   # exp-1 2x Crs
                                             (24, 20, 24)])  # Csr-shaped
 def test_rows_window_covers_expansion_streams(logp, logd, logn):
-    """The round-4 Crs finding: the emission lookup
-    (``group_rows[group_start[g] + within]``) was left at the default
-    1024 window while the segmented probe sort multiplied the position
-    stream's per-chunk spread by P/segment -- every chunk failed coverage
-    and the WHOLE 16.8M-row emission serialized to the 144 ms gather
-    (measured 191 ms vs 49 ms strand, artifacts/r4/exp1_t0.log).
-    ``rows_window`` must leave zero uncovered chunks at the canonical
-    shapes; the old default must fail at the Crs shape (proving the test
-    bites)."""
-    from hashjoin3d_tpu.ops.sort import set_sort_impl
-    from hashjoin3d_tpu.ops.strands_windowed import rows_window
-    P, domain, n_rows = 1 << logp, 1 << logd, 1 << logn
-    # pin the TPU routing: probe_sort_chunk is engine-dependent (the Crs
-    # shape P == domain only segments under the Pallas bitonic cap; on the
-    # CPU test backend "auto" resolves to lax, which returns None there).
-    # The simulation below is pure numpy, so no Pallas sort ever compiles.
-    set_sort_impl("bitonic")
-    try:
-        chunk = probe_sort_chunk(P, domain)
-    finally:
-        set_sort_impl("auto")
-    if (logp, logd) == (20, 20):
-        assert chunk is not None      # bitonic 2^18 segments, W = 8192
-    elif (logp, logd) == (21, 21):
-        # the needed window (2 * 1024 * 2^21 / 2^18 = 16K) exceeds the
-        # kernel's 8K cap at every legal segment: the policy must route
-        # this shape to the GLOBAL sort, whose streams the default
-        # rows_window covers below
-        assert chunk is None
-    # simulate the shipped route: chunk=None = one global segment
-    sim_seg = chunk if chunk is not None else P
-    Wr, Cr = rows_window(P, chunk, n_rows, out_size=n_rows)
-    assert _simulate_rows_stream_uncovered(P, domain, sim_seg, n_rows,
-                                           Wr, Cr) == 0
-    if (logp, logd, logn) == (20, 20, 24):
-        # the pre-fix default window: every chunk uncovered
-        assert _simulate_rows_stream_uncovered(P, domain, chunk, n_rows,
-                                               1024, 1024) > 1000
+    """The emission stream (``group_rows[group_start[g] + within]``) of a
+    segment-sorted probe stream, at the canonical shapes' ratios (scaled
+    down 2^10): ``expand`` must reproduce numpy's per-probe repeat exactly,
+    including the restart at every segment boundary."""
+    from hashjoin3d_tpu.ops.layout import expand
+
+    P, domain, n_rows = (1 << logp) >> 10, (1 << logd) >> 10, \
+        (1 << logn) >> 10
+    glen = n_rows // domain
+    rng = np.random.default_rng(3)
+    seg = max(P // 4, 1)
+    keys = np.sort(rng.integers(0, domain, P).reshape(-1, seg),
+                   axis=1).reshape(P)
+    counts = np.full(P, glen, np.int32)
+    counts[rng.random(P) < 0.1] = 0                       # misses
+    out_size = int(counts.sum())
+    p, within, valid, total = (np.asarray(x) for x in
+                               expand(jnp.asarray(counts), out_size)[:4])
+    want_p = np.repeat(np.arange(P), counts)
+    assert int(total) == out_size and valid.all()
+    np.testing.assert_array_equal(p, want_p)
+    want_w = np.concatenate([np.arange(c) for c in counts if c])
+    np.testing.assert_array_equal(within, want_w)
+    pos = keys[p] * glen + within                          # CSR positions
+    np.testing.assert_array_equal(pos, keys[want_p] * glen + want_w)

@@ -1,7 +1,7 @@
-"""Windowed (sorted-probe) strands vs the reference-pinned baseline strands.
+"""Sorted-probe strands vs the reference-pinned baseline strands.
 
 The baseline strands (models.exp1/exp4) are pinned bit-equal to the
-reference binaries by the CSV differential tests; the windowed strands must
+reference binaries by the CSV differential tests; the sorted strands must
 reproduce their counters exactly and their result sets as multisets.
 """
 
@@ -10,10 +10,11 @@ import numpy as np
 import pytest
 
 from hashjoin3d_tpu.ops.chaining import build_chaining_host
+from hashjoin3d_tpu.ops.layout import safe_lookup
 from hashjoin3d_tpu.ops.nested import build_nested_host
 from hashjoin3d_tpu.ops.strands_windowed import (
     chj_strand_sorted, direct_probe_strand_sorted,
-    keydirect_nested_strand_sorted, ndu_strand_sorted, safe_lookup)
+    keydirect_nested_strand_sorted, ndu_strand_sorted)
 
 
 def _pairs(prow, brow, valid=None):
@@ -26,7 +27,7 @@ def _pairs(prow, brow, valid=None):
 
 
 def test_safe_lookup_gather_fallback():
-    """Uncoverable key streams fall back to the XLA gather, same results."""
+    """Unsorted keys with misses (negative and past the table)."""
     import jax.numpy as jnp
     rng = np.random.default_rng(0)
     vals = rng.integers(1, 2**31, 8192, dtype=np.uint32)
@@ -265,54 +266,46 @@ def test_merged_chaining_strand_sorted(wide, unique):
     assert int(pre["c_htProbeCmp"]) == int(res.num_cmps)
 
 
-# -- route observability (VERDICT r3 weak #4) ---------------------------------
+# -- the gather on the strands' stream shapes --------------------------------
 
 
 def test_route_codes_surface_per_strand():
-    """safe_lookup's routing decision (windowed / patched / gather) is
-    visible in strand outputs, so a silent fast-path regression fails a
-    test instead of only slowing the wall clock."""
+    """safe_lookup on the three stream shapes the strands produce -- fully
+    sorted, segment-restarting with a misaligned wrap, fully random --
+    equals the numpy gather."""
     import jax.numpy as jnp
 
-    from hashjoin3d_tpu.ops.strands_windowed import (
-        ROUTE_GATHER, ROUTE_PATCHED, ROUTE_WINDOWED, _with_route)
-
-    @_with_route
-    def lookup(values, keys, **kw):
-        return {"v": safe_lookup(values, keys, **kw)}
-
     rng = np.random.default_rng(11)
-    vals = jnp.asarray(rng.integers(1, 2**31, 1 << 14, dtype=np.uint32))
-
-    # fully sorted stream with chunk spread < W: pure windowed
-    ks = np.sort(rng.integers(0, 1 << 12, 8192)).astype(np.int32)
-    out = lookup(vals, jnp.asarray(ks))
-    assert int(out["route_worst"]) == ROUTE_WINDOWED
-    assert int(out["route_nbad"]) == 0
-
-    # segment-restarting stream, misaligned wrap: a few patched chunks
+    vals_np = rng.integers(1, 2**31, 1 << 14, dtype=np.uint32)
+    vals = jnp.asarray(vals_np)
     seg = 4096
-    ks = np.concatenate([
-        np.sort(rng.integers(0, 1 << 14, seg)).astype(np.int32)[
-            np.r_[np.arange(137, seg), np.arange(137)]]
-        for _ in range(4)])
-    out = lookup(vals, jnp.asarray(ks))
-    assert int(out["route_worst"]) == ROUTE_PATCHED
-    assert 0 < int(out["route_nbad"]) <= 64
-
-    # fully random stream beyond the patch budget: whole-stream gather
-    ks = rng.integers(0, 1 << 14, 1 << 15).astype(np.int32)
-    out = lookup(vals, jnp.asarray(ks), max_patch=4)
-    assert int(out["route_worst"]) == ROUTE_GATHER
+    streams = [
+        np.sort(rng.integers(0, 1 << 12, 8192)).astype(np.int32),
+        np.concatenate([
+            np.sort(rng.integers(0, 1 << 14, seg)).astype(np.int32)[
+                np.r_[np.arange(137, seg), np.arange(137)]]
+            for _ in range(4)]),
+        rng.integers(0, 1 << 14, 1 << 15).astype(np.int32),
+    ]
+    for ks in streams:
+        got = np.asarray(safe_lookup(vals, jnp.asarray(ks)))
+        np.testing.assert_array_equal(got, vals_np[ks])
 
 
 def test_direct_strand_route_is_windowed():
-    """The canonical strand shape (scaled down) must take the pure
-    windowed route end to end."""
+    """The canonical strand shape (scaled down, no misses) equals the
+    reference-pinned baseline strand: counters and pair multiset."""
+    from hashjoin3d_tpu.models.exp1 import _chaining_probe_strand
+
     rng = np.random.default_rng(12)
     n, P = 4096, 32768
     bk = rng.permutation(n).astype(np.uint32)
-    pk = rng.integers(0, n, P, dtype=np.uint32)  # no misses: no cond walks
+    pk = rng.integers(0, n, P, dtype=np.uint32)
     tbl = build_chaining_host(bk, n, dense_direct=True, n_keys=n)
     out = jax.device_get(direct_probe_strand_sorted(tbl, pk, unique=True))
-    assert int(out["route_worst"]) == 0, int(out["route_nbad"])
+    base = jax.device_get(_chaining_probe_strand(tbl, pk, P, True))
+    assert "route_worst" not in out
+    for c in ("c_htProbe", "c_htProbeCmp", "total"):
+        assert int(out[c]) == int(base[c]), c
+    assert _pairs(out["probe_row"], out["build_row"]) == _pairs(
+        base["probe_row"], base["build_row"])

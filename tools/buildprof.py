@@ -1,20 +1,20 @@
 """Stage-level build profiler: where do the 2^24-row build milliseconds go?
 
 The host/fused compacted builds (`build_nested_host` / `build_chaining_host`)
-are the engine's build fast path (PERF.md: 158-326 ms at 16.8M rows).  Their
-cost decomposes into three device phases:
+are the engine's build fast path.  Their cost decomposes into three device
+phases:
 
   1. phase-1 key sort            (`layout.sort_with_rows`, 2-op lax.sort)
   2. compacted directory         (`layout.compact_group_index`: scans +
-                                  narrow head scatter + windowed fetches)
+                                  narrow head scatter + directory gathers)
   3. bucket/directory phase      (cap-sized main-chain sort + histograms,
                                   plus the optional ee / key_direct indexes)
 
-This tool times each phase fence-amortized (tools/roofline.py protocol) and
-reports the residual of the full build against the sum -- if the residual is
-large, the cost model is missing a term; if phase 2's scans dominate, a
-Pallas carry-scan kernel is the next lever; if phase 1 dominates, the sort
-remains the wall.  Run on the real TPU:
+This tool times each phase (tools/roofline.py protocol) and reports the
+residual of the full build against the sum -- if the residual is large, the
+cost model is missing a term; if phase 2's scans dominate, a scan kernel is
+the next lever; if phase 1 dominates, the sort remains the wall.  Run on an
+accelerator:
 
     python tools/buildprof.py [--n 24] [--keylog 20]
 """
@@ -34,7 +34,7 @@ from hashjoin3d_tpu.ops import chaining as chainmod
 from hashjoin3d_tpu.ops import nested as nestmod
 from hashjoin3d_tpu.ops.layout import (compact_group_index, key_direct_index,
                                        sort_with_rows)
-from roofline import fence_floor, timeit
+from roofline import timeit
 
 
 def main():
@@ -50,7 +50,6 @@ def main():
     nb = dom                        # experiments: #buckets ~ #distinct keys
     print(f"devices: {jax.devices()}  n=2^{args.n} domain=2^{args.keylog}",
           flush=True)
-    print(f"fence floor: {fence_floor()*1e3:.2f} ms", flush=True)
 
     rng = np.random.default_rng(11)
     keys = jnp.asarray(rng.integers(0, dom, n, dtype=np.uint32))
@@ -127,7 +126,7 @@ def main():
 
     # head-compaction formulation A/B: every build pays one directory
     # head compaction in compact_group_index (the padded key_group_index
-    # additionally replaces two n-sized serialized directory gathers with
+    # additionally replaces two n-sized directory gathers with
     # sort payload slots).  Decides layout._HEADCOMPACT_IMPL's device
     # default.
     from hashjoin3d_tpu.ops.layout import key_group_index, set_headcompact_impl

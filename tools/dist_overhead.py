@@ -2,8 +2,8 @@
 
 Runs the SAME workload through (a) the distributed nested join on a
 1-device mesh (shard_map + partition_exchange + padded build + probe +
-unnest) and (b) the single-chip fast path (compacted host build + windowed
-probe strand), on the real TPU, fence-amortized.  The ratio quantifies
+unnest) and (b) the single-card path (compacted host build + sorted
+probe strand), on one accelerator, each as a timed batch of reps.  The ratio quantifies
 what the distributed machinery costs when the mesh collapses to one chip
 — the fixed overhead a pod-slice run must amortize (BASELINE.json targets
 >= 85% weak-scaling efficiency; combine with scaling_bench.py on real
@@ -20,7 +20,6 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 
 
@@ -35,7 +34,6 @@ def main():
         keydirect_nested_strand_sorted)
     from hashjoin3d_tpu.parallel import (
         dist_nested_join, make_mesh, shard_axis)
-    from hashjoin3d_tpu.utils.measure import fence
 
     n = 1 << args.n
     dom = n // 4
@@ -44,21 +42,14 @@ def main():
     pk = rng.integers(0, dom, n, dtype=np.uint32)
     ndv = int(np.unique(bk).size)
 
-    x = jnp.zeros((8,), jnp.int32)
-    fence(x)
-    t0 = time.perf_counter()
-    for _ in range(8):
-        fence(x)
-    floor = (time.perf_counter() - t0) / 8
-
     def timeit(fn):
-        fence(fn())
+        jax.block_until_ready(fn())
         t0 = time.perf_counter()
         out = None
         for _ in range(args.reps):
             out = fn()
-        fence(out)
-        return max(time.perf_counter() - t0 - floor, 1e-9) / args.reps, out
+        jax.block_until_ready(out)
+        return (time.perf_counter() - t0) / args.reps, out
 
     # (a) distributed join on a 1-device mesh
     mesh = make_mesh(1)
@@ -72,7 +63,7 @@ def main():
     assert int(out_d["overflow"]) == 0
     total_d = int(out_d["num_unnested"])
 
-    # (a') same, with the windowed shard-local probe (key_domain)
+    # (a') same, with the sorted shard-local probe (key_domain)
     stepw = dist_nested_join(mesh, num_buckets_per_shard=ndv,
                              build_capacity=n, probe_capacity=n,
                              out_capacity=out_cap, key_domain=dom)
@@ -90,7 +81,7 @@ def main():
     assert int(out_f["overflow"]) == 0
     assert int(out_f["num_unnested"]) == total_d
 
-    # (b) single-chip fast path: compacted build + windowed probe strand
+    # (b) single-card path: compacted build + sorted probe strand
     bk_dev = jax.device_put(bk)
     pk_dev = jax.device_put(pk)
 
@@ -103,16 +94,16 @@ def main():
         int(out_s["c_unnest"]), total_d)
 
     print(f"rows/side: {n}  results: {total_d}")
-    print(f"single-chip fast path:        {t_single*1e3:8.1f} ms")
+    print(f"single-card path:             {t_single*1e3:8.1f} ms")
     print(f"dist @ 1-dev (default probe): {t_dist*1e3:8.1f} ms "
           f"({t_dist/t_single:.2f}x)")
-    print(f"dist @ 1-dev (windowed probe):{t_distw*1e3:8.1f} ms "
+    print(f"dist @ 1-dev (sorted probe):  {t_distw*1e3:8.1f} ms "
           f"({t_distw/t_single:.2f}x)")
     print(f"dist @ 1-dev (fast: fused build + presorted probe):"
           f"{t_distf*1e3:8.1f} ms ({t_distf/t_single:.2f}x)")
     print("breakdown drivers: exchange sort+pack+all_to_all of both sides, "
           "padded (shard_map-safe) build instead of the compacted host "
-          "build, serialized-gather probe instead of the windowed strand")
+          "build, unsorted probe instead of the sorted strand")
 
 
 if __name__ == "__main__":

@@ -2,8 +2,8 @@
 
 Runs the pipelined (prefetch=True) vs strictly-sequential (prefetch=False)
 variants of the chunked flat join and the ring join on a virtual 8-device
-CPU mesh (the only multi-device surface in this environment; on a pod slice
-the same script runs unchanged over real ICI) and reports wall times.  With
+CPU mesh (on the cards of one host the same script runs unchanged over
+NVLink) and reports wall times.  With
 ``--trace DIR`` it also captures a jax profiler trace of one pipelined step
 so the collective/compute concurrency is inspectable in TensorBoard/xprof.
 

@@ -1,10 +1,10 @@
-"""Pallas fused multi-scan (ops/scan.py) vs XLA lax scans on the real TPU.
+"""The engine's scans (``ops.scan.engine_multi_scan``) at 2^24, against a
+copy of the same bytes.
 
-Decides whether run_boundaries / expand / merge_lookup switch their scans
-to the kernel: rows compare single scans, the fused 3-op pass, the reverse
-pass, and expand()'s packed-i64 cummax vs the i32 maxpair kernel, all
-fence-amortized at 2^24.  Correctness is asserted against the lax twins
-before any timing is reported.
+Rows: single cumsum / cummax / reverse cummin, the fused sum+max+min bundle
+``layout.run_boundaries`` uses, and ``maxpair`` (``expand``'s segmented
+propagation) next to the packed-i64 cummax it equals.  Results are checked
+against numpy before any timing is reported.
 
     python tools/scanbench.py [--n 24] [--quick]
 """
@@ -19,8 +19,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from hashjoin3d_tpu.ops.scan import multi_scan
-from roofline import fence_floor, timeit
+from hashjoin3d_tpu.ops.scan import engine_multi_scan
+from roofline import timeit
 
 
 def main():
@@ -32,78 +32,54 @@ def main():
     n = 1 << args.n
 
     print(f"devices: {jax.devices()}  n=2^{args.n}", flush=True)
-    print(f"fence floor: {fence_floor()*1e3:.2f} ms", flush=True)
-
     rng = np.random.default_rng(13)
-    a = jnp.asarray(rng.integers(-100, 100, n).astype(np.int32))
-    b = jnp.asarray(rng.integers(-1 << 30, 1 << 30, n).astype(np.int32))
-    c = jnp.asarray(rng.integers(-1 << 30, 1 << 30, n).astype(np.int32))
-    rank = jnp.asarray(np.sort(rng.integers(-1, 1 << 20, n)).astype(np.int32))
-    val = jnp.asarray(rng.integers(0, 1 << 26, n).astype(np.int32))
+    a = rng.integers(-100, 100, n).astype(np.int32)
+    b = rng.integers(-1 << 30, 1 << 30, n).astype(np.int32)
+    c = rng.integers(-1 << 30, 1 << 30, n).astype(np.int32)
+    rank = np.sort(rng.integers(-1, 1 << 20, n)).astype(np.int32)
+    val = rng.integers(0, 1 << 26, n).astype(np.int32)
 
-    # interp=True exercises the kernel through the pallas interpreter (the
-    # only option on CPU smoke runs); on TPU the compiled kernel runs
-    interp = jax.default_backend() == "cpu"
+    bundle = jax.jit(lambda x, y, z: engine_multi_scan(
+        (x, y, z), ("sum", "max", "min")))
+    got = [np.asarray(g) for g in bundle(a, b, c)]
+    assert np.array_equal(got[0], np.cumsum(a).astype(np.int32))
+    assert np.array_equal(got[1], np.maximum.accumulate(b))
+    assert np.array_equal(got[2], np.minimum.accumulate(c))
+    print("scan results match numpy", flush=True)
 
-    from hashjoin3d_tpu.ops.scan import _twin
-
-    # correctness first (against the exact lax twins, fwd + rev, all ops)
-    for ops, arrs in ((("sum",), (a,)), (("max",), (b,)),
-                      (("min",), (c,)), (("maxpair",), (rank, val))):
-        for rev in (False, True):
-            got = multi_scan(arrs, ops, reverse=rev, interpret=interp)
-            want = _twin(arrs, ops, rev)
-            for g, w in zip(got, want):
-                assert np.array_equal(np.asarray(g), np.asarray(w)), \
-                    f"kernel WRONG for {ops} reverse={rev}"
-    print("kernel results match lax twins (fwd+rev, all ops)", flush=True)
-
+    a, b, c = jnp.asarray(a), jnp.asarray(b), jnp.asarray(c)
+    rank, val = jnp.asarray(rank), jnp.asarray(val)
+    copy = jax.jit(lambda x: x + 1)
+    t_copy = timeit(copy, a, min_time=mt)
+    copy_gbs = 2 * 4 * n / t_copy / 1e9
     rows = []
 
-    def report(name, secs):
-        rows.append((name, secs * 1e3, secs * 1e9 / n))
-        print(f"{name:44s} {secs*1e3:9.2f} ms  {secs*1e9/n:6.2f} ns/elem",
-              flush=True)
+    def report(name, secs, arrays):
+        gbs = 2 * 4 * n * arrays / secs / 1e9
+        rows.append((name, secs * 1e3, gbs, 100 * gbs / copy_gbs))
+        print(f"{name:44s} {secs*1e3:9.3f} ms  {gbs:8.1f} GB/s "
+              f"{100*gbs/copy_gbs:6.1f}% copy", flush=True)
 
-    lax_sum = jax.jit(lambda x: jnp.cumsum(x))
-    lax_max = jax.jit(lambda x: jax.lax.cummax(x, 0))
-    lax_min_r = jax.jit(lambda x: jax.lax.cummin(x, 0, reverse=True))
-    report("lax cumsum i32", timeit(lax_sum, a, min_time=mt))
-    report("lax cummax i32", timeit(lax_max, b, min_time=mt))
-    report("lax cummin i32 (reverse)", timeit(lax_min_r, c, min_time=mt))
-
-    k_sum = jax.jit(lambda x: multi_scan((x,), ("sum",), interpret=interp))
-    k_max = jax.jit(lambda x: multi_scan((x,), ("max",), interpret=interp))
-    k_min_r = jax.jit(lambda x: multi_scan((x,), ("min",), reverse=True,
-                                           interpret=interp))
-    report("pallas cumsum i32", timeit(k_sum, a, min_time=mt))
-    report("pallas cummax i32", timeit(k_max, b, min_time=mt))
-    report("pallas cummin i32 (reverse)", timeit(k_min_r, c, min_time=mt))
-
-    # the run_boundaries bundle: 3 lax scans vs one fused pass
-    lax3 = jax.jit(lambda x, y, z: (jnp.cumsum(x), jax.lax.cummax(y, 0),
-                                    jax.lax.cummin(z, 0)))
-    k3 = jax.jit(lambda x, y, z: multi_scan((x, y, z),
-                                            ("sum", "max", "min"),
-                                            interpret=interp))
-    report("lax 3 scans (sum+max+min)", timeit(lax3, a, b, c, min_time=mt))
-    report("pallas fused 3 scans (one pass)", timeit(k3, a, b, c,
-                                                     min_time=mt))
-
-    # expand()'s strong-expansion payload path: packed-i64 cummax vs maxpair
+    report("copy i32 (read+write)", t_copy, 1)
+    for op, x, rev in (("sum", a, False), ("max", b, False),
+                       ("min", c, True)):
+        f = jax.jit(lambda v, op=op, rev=rev: engine_multi_scan(
+            (v,), (op,), reverse=rev))
+        report(f"{op} scan i32{' (reverse)' if rev else ''}",
+               timeit(f, x, min_time=mt), 1)
+    report("bundle sum+max+min", timeit(bundle, a, b, c, min_time=mt), 3)
     packed = (rank.astype(jnp.int64) << 26) | val.astype(jnp.int64)
     lax_i64 = jax.jit(lambda p: jax.lax.cummax(p, 0))
-    k_pair = jax.jit(lambda k, v: multi_scan((k, v), ("maxpair",),
-                                             interpret=interp))
-    report("lax cummax i64 (packed rank|val)", timeit(lax_i64, packed,
-                                                      min_time=mt))
-    report("pallas maxpair (rank, val) i32", timeit(k_pair, rank, val,
-                                                    min_time=mt))
+    pair = jax.jit(lambda k, v: engine_multi_scan((k, v), ("maxpair",)))
+    report("cummax i64 (packed rank|val)", timeit(lax_i64, packed,
+                                                  min_time=mt), 2)
+    report("maxpair (rank, val) i32", timeit(pair, rank, val, min_time=mt), 2)
 
-    print("\n| op | ms | ns/elem |")
-    print("|---|---|---|")
-    for name, ms, ns in rows:
-        print(f"| {name} | {ms:.2f} | {ns:.2f} |")
+    print(f"\n{jax.devices()[0].device_kind}")
+    print("| op | ms | GB/s | % copy |")
+    print("|---|---|---|---|")
+    for name, ms, gbs, cp in rows:
+        print(f"| {name} | {ms:.3f} | {gbs:.1f} | {cp:.1f} |")
 
 
 if __name__ == "__main__":

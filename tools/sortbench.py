@@ -1,19 +1,16 @@
 """Sort-wall measurement: how does lax.sort scale with batching and ops?
 
-VERDICT round 2 names the sort the engine's bound (36-50 ms at 2^24 =
-70-90% of every probe strand).  A Pallas radix sort needs within-chunk
-ranking, which costs ~1-3 ns/elem in VPU ops (tools/mosaic_probe.py) --
-no better than lax.sort's measured 2.1-3.0 ns/elem.  The remaining lever
-is the bitonic depth: XLA sorts along the minor axis independently per
-row, so sorting K chunks of C costs ~n*log^2(C) compares vs n*log^2(n)
-monolithic.  This probe measures that curve (and the u64-packed
-alternative) on the real chip to size the win before any rewiring.
+The probe strands' one sort is either XLA's global ``lax.sort`` or its
+(K, C)-segmented form (``ops.sort.sort_segmented``, chosen by
+``probe_sort_chunk``).  This probe measures the global sorts, the batched
+curve over segment sizes, a u64-packed 1-op alternative to the 2-op sort,
+and the runtime skip of an already-ascending stream, all at 2^24 keys over
+a 2^20 domain.
 
-Run: python tools/sortbench.py
+Run on an accelerator: python tools/sortbench.py
 """
 
 import sys
-import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
@@ -23,8 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
-from hashjoin3d_tpu.utils.measure import fence
-from tools.roofline import timeit, fence_floor
+from tools.roofline import timeit
 
 I32 = jnp.int32
 U32 = jnp.uint32
@@ -33,17 +29,14 @@ N = 1 << 24
 
 
 def bench(name, fn, *args, n=N, min_time=0.5):
-    out = fn(*args)
-    fence(out)
     t = timeit(fn, *args, min_time=min_time)
-    print(f"  {name:46s} {t*1e3:8.2f} ms  {t*1e9/n:6.3f} ns/elem",
+    print(f"  {name:46s} {t*1e3:8.3f} ms  {t*1e9/n:6.3f} ns/elem",
           flush=True)
     return t
 
 
 def main():
-    print(f"devices: {jax.devices()}  fence floor "
-          f"{fence_floor()*1e3:.1f} ms", flush=True)
+    print(f"devices: {jax.devices()}", flush=True)
     rng = np.random.default_rng(7)
     keys = jnp.asarray(rng.integers(0, 1 << 20, N), dtype=U32)
     rows = jnp.arange(N, dtype=I32)
@@ -77,47 +70,12 @@ def main():
 
     # runtime sortedness detection (ops/layout.py:sort_rows_maybe_skip):
     # skip-branch cost on ascending input vs the cond's overhead on random
-    # input (should be ~ the monotonicity read ~0.1 ms over the plain sort)
+    # input
     from hashjoin3d_tpu.ops.layout import sort_rows_maybe_skip
     sd = jax.jit(sort_rows_maybe_skip)
     ksorted = jnp.sort(keys)
     bench("maybe-skip sort, ascending input (skip)", sd, ksorted)
     bench("maybe-skip sort, random input (cond+sort)", sd, keys)
-
-    # cumsum: the scan the radix design would lean on
-    c1 = jax.jit(lambda k: jnp.cumsum(k.astype(I32)))
-    bench("cumsum i32 (2^24,)", c1, keys)
-    c2 = jax.jit(lambda k: jnp.cumsum(k.reshape(1 << 12, 1 << 12)
-                                      .astype(I32), axis=1))
-    bench("cumsum i32 batched (2^12, 2^12) axis=1", c2, keys)
-
-    # argsort-free inverse: sort (key,iota) then scatter iota -- reference
-    # point for 'apply permutation' alternatives
-    g = jax.jit(lambda k, p: jnp.take(k, p, axis=0))
-    perm = jnp.asarray(rng.permutation(N), dtype=I32)
-    bench("random take 2^24 (permutation apply)", g, keys, perm)
-
-    # Pallas fused bitonic (ops/bitonic.py): every stage in VMEM.
-    # Correctness is asserted against the lexicographic lax twin before
-    # any timing is reported.
-    from hashjoin3d_tpu.ops.bitonic import _twin, bitonic_sort_segmented
-    for logc in (18, 16, 14, 12):
-        C = 1 << logc
-        K = N // C
-        pay = rows % jnp.int32(C)
-        p1 = jax.jit(lambda k, C=C: bitonic_sort_segmented(
-            k, C, interpret=False)[0])
-        p2 = jax.jit(lambda k, p, C=C: bitonic_sort_segmented(
-            k, C, payload=p, interpret=False))
-        w1 = np.asarray(_twin((keys,), C, 1)[0])
-        got = p1(keys)
-        assert np.array_equal(np.asarray(got), w1), f"1-op C=2^{logc} WRONG"
-        wk, wp = (np.asarray(x) for x in _twin((keys, pay), C, 2))
-        gk, gp = p2(keys, pay)
-        assert np.array_equal(np.asarray(gk), wk), f"2-op C=2^{logc} WRONG"
-        assert np.array_equal(np.asarray(gp), wp), f"2-op C=2^{logc} WRONG"
-        bench(f"pallas bitonic 1-op ({K}, 2^{logc})", p1, keys)
-        bench(f"pallas bitonic 2-op ({K}, 2^{logc})", p2, keys, pay)
 
 
 if __name__ == "__main__":
